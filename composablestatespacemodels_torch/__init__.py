@@ -1,0 +1,33 @@
+"""composablestatespacemodels_torch: the PyTorch / CUDA port of
+composablestatespacemodels_tpu for an NVIDIA H100.
+
+The JAX package beside it is the reference.  This package imports torch
+and numpy, never JAX.  Its hot path -- the fused bootstrap particle filter
+(``log_likelihood(..., resample="systematic-fused")``) -- runs two CUDA
+kernels written by hand for Hopper (``csrc/``): K1, the systematic
+resampling counts, and K2, the fused resample + exact propagate, which
+evaluates the observation log-density (K3) in the same pass.  On CPU
+tensors the kernels' plain PyTorch versions run instead.
+"""
+
+__version__ = "0.1.0"
+
+from . import inference, models, ops, utils
+from .inference import (FilterResult, KalmanResult, bootstrap_filter,
+                        kalman_filter, log_likelihood)
+from .models import (branch, brownian_motion, brownian_params, compose,
+                     gen_brownian_motion, gen_brownian_params, leaf, linear,
+                     ou_params, ou_process, param_node, parameters,
+                     params_from_numpy, poisson, seasonal)
+from .utils import SimulatedData, TimeSeries, simulate, simulate_regular
+
+__all__ = [
+    "models", "inference", "ops", "utils",
+    "poisson", "linear", "seasonal", "compose",
+    "brownian_motion", "gen_brownian_motion", "ou_process",
+    "brownian_params", "gen_brownian_params", "ou_params",
+    "param_node", "parameters", "params_from_numpy", "leaf", "branch",
+    "bootstrap_filter", "log_likelihood", "FilterResult",
+    "kalman_filter", "KalmanResult",
+    "TimeSeries", "SimulatedData", "simulate", "simulate_regular",
+]

@@ -1,0 +1,152 @@
+"""K2 + K3: fused systematic resample, exact affine-Gaussian propagate and
+next-step log-weights on the ``[d, N]`` cloud.
+
+Replaces ``composablestatespacemodels_tpu/ops/resample_kernel.py``'s
+``sorted_gather_resample_propagate_t`` (:667) and the Gaussian/Poisson
+``kernel_log_density`` hooks with the CUDA kernel in
+``csrc/resample_propagate.cu``::
+
+    anc_j   = first i with counts[i] > j
+    y[:, j] = a * x[:, anc_j] + b + s * z_j          z ~ N(0, 1)
+    logw[j] = fn(sum_r design_r * y[r, j], consts)
+
+``coef`` is ``[d, 4]`` with columns (a, b, sqrt(q), design); ``consts``
+the family's per-step constants; ``seed`` the per-step int32 Philox key.
+The log-weights are a separate ``[N]`` output (the TPU kernel wrote them
+into a spare padding row of the cloud, an alignment workaround).
+
+On the H100 the kernel is memory-bound: at d = 7, N = 2^20 it reads
+~28 MiB of cloud (+4 MiB counts) and writes ~32 MiB per step.  One thread
+per output column finds its ancestor by binary search over the
+L2-resident counts; the TPU's streaming merge is later work.
+
+The noise is Philox4x32-10 keyed by the seed with the column index as the
+counter (``csrc/philox.cuh``).  :func:`philox4x32_10` computes the same
+bits with int64 tensor ops (32-bit products in 16-bit halves), so the
+plain version :func:`resample_propagate_ref` draws identical normals and
+the card can compare kernel and plain version value by value.
+
+:func:`resample_propagate` launches the kernel for CUDA tensors and raises
+for any device it cannot serve; for CPU tensors (the tests) it computes
+the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..inference.resampling import _ancestors_from_counts
+from ..models.observation import _KERNEL_FNS, kernel_fn
+from . import _build
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _mulhilo32(a: torch.Tensor, m: int):
+    """(high, low) 32-bit words of ``a * m`` for ``a`` in [0, 2^32): the
+    product is assembled from 16-bit halves so no int64 step overflows."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    m_lo, m_hi = m & 0xFFFF, m >> 16
+    mid = a_hi * m_lo + a_lo * m_hi                     # < 2^33
+    lo_full = a_lo * m_lo + ((mid & 0xFFFF) << 16)      # < 2^33
+    hi = (a_hi * m_hi + (mid >> 16) + (lo_full >> 32)) & _MASK32
+    return hi, lo_full & _MASK32
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 on int64 tensors holding uint32 words: ``ctr`` four
+    words, ``key`` two; returns the four output words (csrc/philox.cuh)."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for rnd in range(10):
+        if rnd:
+            k0 = (k0 + _PHILOX_W0) & _MASK32
+            k1 = (k1 + _PHILOX_W1) & _MASK32
+        hi0, lo0 = _mulhilo32(c0, _PHILOX_M0)
+        hi1, lo1 = _mulhilo32(c2, _PHILOX_M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _box_muller(a: torch.Tensor, b: torch.Tensor):
+    """Two normals from two words: 24-bit uniforms, u1 in (0, 1]."""
+    u1 = (a >> 8).float() * 2.0 ** -24 + 2.0 ** -25
+    theta = 6.28318530717958 * ((b >> 8).float() * 2.0 ** -24)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def philox_normals(seed: torch.Tensor, d: int, n: int) -> torch.Tensor:
+    """The kernel's normals ``z [d, n]``: column j, rows 4k..4k+3 come from
+    Philox counter (j, k, 0, 0) under key (seed, 0)."""
+    j = torch.arange(n, dtype=torch.int64, device=seed.device)
+    zero = torch.zeros_like(j)
+    k0 = seed.reshape(()).to(torch.int64) & _MASK32
+    rows = []
+    for k in range((d + 3) // 4):
+        w0, w1, w2, w3 = philox4x32_10((j, torch.full_like(j, k), zero, zero),
+                                       (k0, 0))
+        rows += [*_box_muller(w0, w1), *_box_muller(w2, w3)]
+    return torch.stack(rows[:d])
+
+
+def resample_propagate_ref(x: torch.Tensor, counts: torch.Tensor,
+                           coef: torch.Tensor, consts: torch.Tensor,
+                           seed: torch.Tensor, family_id: int):
+    """Plain PyTorch version of K2 + K3, in the kernel's operation order."""
+    d, n = x.shape
+    anc = _ancestors_from_counts(counts, n).long()
+    z = philox_normals(seed, d, n)
+    a, b, s, design = (coef[:, k, None] for k in range(4))
+    y = a * x[:, anc] + b + s * z
+    gamma = design[0] * y[0]
+    for r in range(1, d):
+        gamma = gamma + design[r] * y[r]
+    return y, kernel_fn(family_id)(gamma, consts)
+
+
+def resample_propagate(x: torch.Tensor, counts: torch.Tensor,
+                       coef: torch.Tensor, consts: torch.Tensor,
+                       seed: torch.Tensor, family_id: int):
+    """Resample ``x [d, N]`` by ``counts``, propagate with ``coef [d, 4]``
+    and weight with family ``family_id``; returns ``(y [d, N], logw [N])``."""
+    if x.device.type == "cpu":
+        return resample_propagate_ref(x, counts, coef, consts, seed,
+                                      family_id)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K2 kernel for device {x.device}")
+    d, n = x.shape
+    dev = x.device
+    checks = [
+        (x, torch.float32, (d, n), "x"),
+        (counts, torch.int32, (n,), "counts"),
+        (coef, torch.float32, (d, 4), "coef"),
+    ]
+    for t, dtype, shape, name in checks:
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if (consts.device != dev or consts.dtype != torch.float32
+            or consts.ndim != 1 or not consts.is_contiguous()):
+        raise ValueError("consts must be a contiguous float32 row on "
+                         f"{dev}")
+    if seed.device != dev or seed.dtype != torch.int32 or seed.numel() != 1:
+        raise ValueError(f"seed must be one int32 element on {dev}")
+    if family_id not in _KERNEL_FNS:
+        raise ValueError(f"no K3 device function for family {family_id}")
+    y = torch.empty_like(x)
+    logw = torch.empty(n, dtype=torch.float32, device=dev)
+    err = _build.lib().cssm_resample_propagate(
+        x.data_ptr(), counts.data_ptr(), coef.data_ptr(), consts.data_ptr(),
+        seed.data_ptr(), y.data_ptr(), logw.data_ptr(), d, n, family_id,
+        dev.index, _build.cuda_stream(dev))
+    _build.check(err, "cssm_resample_propagate")
+    resample_propagate.launches += 1
+    return y, logw
+
+
+resample_propagate.launches = 0
