@@ -2,19 +2,23 @@
 composablestatespacemodels_tpu for an NVIDIA H100.
 
 The JAX package beside it is the reference.  This package imports torch
-and numpy, never JAX.  Its hot path -- the fused bootstrap particle filter
-(``log_likelihood(..., resample="systematic-fused")``) -- runs two CUDA
-kernels written by hand for Hopper (``csrc/``): K1, the systematic
-resampling counts, and K2, the fused resample + exact propagate, which
-evaluates the observation log-density (K3) in the same pass.  On CPU
-tensors the kernels' plain PyTorch versions run instead.
+and numpy, never JAX.  Its bootstrap particle filter runs on CUDA kernels
+written by hand for Hopper (``csrc/``): K1, the systematic resampling
+counts; K2, the fused resample + exact propagate, which evaluates the
+observation log-density (K3) in the same pass (``log_likelihood``); K4,
+the resampling gather; K5, the standalone propagate + log-density
+(``bootstrap_filter`` with a store mode); K7a/K7b, the prefix sum and
+running max behind the stratified counts.  On CPU tensors the kernels'
+plain PyTorch versions run instead.
 """
 
 __version__ = "0.1.0"
 
 from . import inference, models, ops, utils
-from .inference import (FilterResult, KalmanResult, bootstrap_filter,
-                        kalman_filter, log_likelihood)
+from .inference import (FilterResult, KalmanResult, PfSummary,
+                        bootstrap_filter, credible_interval_eta,
+                        credible_interval_state, kalman_filter,
+                        log_likelihood)
 from .models import (branch, brownian_motion, brownian_params, compose,
                      gen_brownian_motion, gen_brownian_params, leaf, linear,
                      ou_params, ou_process, param_node, parameters,
@@ -27,7 +31,8 @@ __all__ = [
     "brownian_motion", "gen_brownian_motion", "ou_process",
     "brownian_params", "gen_brownian_params", "ou_params",
     "param_node", "parameters", "params_from_numpy", "leaf", "branch",
-    "bootstrap_filter", "log_likelihood", "FilterResult",
+    "bootstrap_filter", "log_likelihood", "FilterResult", "PfSummary",
+    "credible_interval_eta", "credible_interval_state",
     "kalman_filter", "KalmanResult",
     "TimeSeries", "SimulatedData", "simulate", "simulate_regular",
 ]

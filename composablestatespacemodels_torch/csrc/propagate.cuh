@@ -1,0 +1,52 @@
+// The exact affine-Gaussian step of one particle column, shared by K2
+// (resample_propagate.cu) and K5 (propagate_weights.cu):
+//
+//   y[r, j] = a_r * x[r, src] + b_r + s_r * z_{r,j}        (z ~ N(0, 1))
+//   gamma_j = sum_r design_r * y[r, j]                     (weighted only)
+//
+// coef is [d, NCOL] row-major: (a, b, sqrt(q)) and, when NCOL == 4, the
+// design.  z comes from Philox4x32-10 keyed by the step seed with counter
+// (j, r / 4, 0, 0) (philox.cuh), so the plain version
+// (ops/resample_kernel.py::philox_normals) draws the same normals.  Every
+// float step is explicitly rounded: no FMA the plain version lacks.
+#pragma once
+#include <stdint.h>
+
+#include "philox.cuh"
+
+namespace cssm {
+
+template <int NCOL>
+__device__ __forceinline__ float propagate_column(
+    const float* __restrict__ x, int64_t src, const float* __restrict__ coef,
+    const int* __restrict__ seed, float* __restrict__ y, int d, int64_t n,
+    int64_t j) {
+  const uint2 key = make_uint2((uint32_t)__ldg(seed), 0u);
+  float gamma = 0.f;
+  for (int r0 = 0; r0 < d; r0 += 4) {
+    const uint4 bits = philox4x32_10(
+        make_uint4((uint32_t)j, (uint32_t)(r0 >> 2), 0u, 0u), key);
+    float z[4];
+    box_muller(bits.x, bits.y, z[0], z[1]);
+    box_muller(bits.z, bits.w, z[2], z[3]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = r0 + k;
+      if (r < d) {
+        const float* cr = coef + NCOL * r;
+        const float v = __fadd_rn(
+            __fadd_rn(__fmul_rn(__ldg(cr), __ldg(x + r * n + src)),
+                      __ldg(cr + 1)),
+            __fmul_rn(__ldg(cr + 2), z[k]));
+        y[r * n + j] = v;
+        if constexpr (NCOL == 4) {
+          const float g = __fmul_rn(__ldg(cr + 3), v);
+          gamma = r == 0 ? g : __fadd_rn(gamma, g);
+        }
+      }
+    }
+  }
+  return gamma;
+}
+
+}  // namespace cssm

@@ -19,34 +19,19 @@
 // 4 MiB of log-weights: ~64 MiB, ~20 us at 3.35 TB/s.  The design does each
 // of those transfers once: resample, propagate and weighting happen in
 // registers, and the separate log-weight output replaces the TPU's spare
-// padding row (a sublane-alignment workaround).  Ancestors come from one
-// thread per output column running an upper_bound over counts, which stays
-// in the 50 MB L2 (4 MiB); the dependent-load chain of that search (~20
-// probes) is the latency this simple version pays.  The TPU's streaming
+// padding row (a sublane-alignment workaround).  Ancestors come from
+// ancestor.cuh's upper_bound, one thread per output column, and the column
+// step from propagate.cuh, which K4 and K5 share.  The TPU's streaming
 // merge, windowed duplication and prepass scalars do not carry over; a
 // streaming merge with TMA is later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ancestor.cuh"
 #include "obs_density.cuh"
-#include "philox.cuh"
+#include "propagate.cuh"
 
 namespace cssm {
-
-// first i in [0, n) with counts[i] > j (counts nondecreasing, last == n)
-__device__ __forceinline__ int64_t upper_bound(const int* __restrict__ counts,
-                                               int64_t n, int64_t j) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if ((int64_t)__ldg(counts + mid) > j) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  return lo < n ? lo : n - 1;
-}
 
 template <int FAMILY>
 __global__ void __launch_bounds__(256) resample_propagate_kernel(
@@ -57,29 +42,7 @@ __global__ void __launch_bounds__(256) resample_propagate_kernel(
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   const int64_t anc = upper_bound(counts, n, j);
-  const uint2 key = make_uint2((uint32_t)__ldg(seed), 0u);
-  float gamma = 0.f;
-  for (int r0 = 0; r0 < d; r0 += 4) {
-    const uint4 bits = philox4x32_10(
-        make_uint4((uint32_t)j, (uint32_t)(r0 >> 2), 0u, 0u), key);
-    float z[4];
-    box_muller(bits.x, bits.y, z[0], z[1]);
-    box_muller(bits.z, bits.w, z[2], z[3]);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int r = r0 + k;
-      if (r < d) {
-        const float* cr = coef + 4 * r;
-        const float v = __fadd_rn(
-            __fadd_rn(__fmul_rn(__ldg(cr), __ldg(x + r * n + anc)),
-                      __ldg(cr + 1)),
-            __fmul_rn(__ldg(cr + 2), z[k]));
-        y[r * n + j] = v;
-        const float g = __fmul_rn(__ldg(cr + 3), v);
-        gamma = r == 0 ? g : __fadd_rn(gamma, g);
-      }
-    }
-  }
+  const float gamma = propagate_column<4>(x, anc, coef, seed, y, d, n, j);
   logw[j] = obs_log_density<FAMILY>(gamma, consts);
 }
 

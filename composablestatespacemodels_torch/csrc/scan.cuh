@@ -1,0 +1,208 @@
+// The one tile scan behind every prefix producer of the port: K1 (counts.cu)
+// and K7a / K7b (scan.cu).
+//
+// The JAX package keeps one prefix implementation for every count producer
+// (ops/scan_kernel.py:617-620), because a float32 prefix moves by ulps with
+// its summation order and an ulp moves a count at ties.  Here the kernels
+// share this header: a fixed tile of kThreads x kItems elements, a float64
+// prefix rounded to float32 per entry, and an exact int32 running max.  The
+// TPU walks its grid in order and carries the prefix and the running max in
+// SMEM; Hopper blocks run in parallel, so a scan is three passes:
+//   1. tile_sums: each tile's float64 sum;
+//   2. tile_prefix (+ tile_cummax_store): each tile adds up the sums of the
+//      tiles before it, scans its own elements and, for the running max,
+//      writes its values maxed within the tile and its tile maximum;
+//   3. cummax_carry: each tile takes the maximum of the tiles before it and
+//      raises its values to it (left after one read when nothing crosses).
+// Every float64 addition has a fixed association order (warp shuffles in a
+// fixed tree, no atomics), which the plain PyTorch version
+// (inference/resampling.py::_cumsum_ref) replays: kernel and plain version
+// agree bit for bit.
+#pragma once
+#include <climits>
+#include <stdint.h>
+
+namespace cssm {
+
+constexpr int kThreads = 1024;
+constexpr int kItems = 4;
+constexpr int kTile = kThreads * kItems;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ double block_sum(double v, double* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    double t = smem[lane];
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(kFull, t, o);
+    if (lane == 0) smem[0] = t;
+  }
+  __syncthreads();
+  const double total = smem[0];
+  __syncthreads();
+  return total;
+}
+
+__device__ __forceinline__ int block_max(int v, int* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_down_sync(kFull, v, o));
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int t = smem[lane];
+    for (int o = 16; o > 0; o >>= 1) t = max(t, __shfl_down_sync(kFull, t, o));
+    if (lane == 0) smem[0] = t;
+  }
+  __syncthreads();
+  const int m = smem[0];
+  __syncthreads();
+  return m;
+}
+
+__device__ __forceinline__ double block_exclusive_sum(double v, double* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) smem[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    double wi = smem[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const double t = __shfl_up_sync(kFull, wi, o);
+      if (lane >= o) wi += t;
+    }
+    double we = __shfl_up_sync(kFull, wi, 1);
+    smem[lane] = lane == 0 ? 0.0 : we;
+  }
+  __syncthreads();
+  double ex = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) ex = 0.0;
+  const double res = smem[warp] + ex;
+  __syncthreads();
+  return res;
+}
+
+__device__ __forceinline__ int block_exclusive_max(int v, int* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl = max(incl, t);
+  }
+  if (lane == 31) smem[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int wi = smem[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(kFull, wi, o);
+      if (lane >= o) wi = max(wi, t);
+    }
+    const int we = __shfl_up_sync(kFull, wi, 1);
+    smem[lane] = lane == 0 ? INT_MIN : we;
+  }
+  __syncthreads();
+  int ex = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) ex = INT_MIN;
+  const int res = max(smem[warp], ex);
+  __syncthreads();
+  return res;
+}
+
+// Pass 1: bsum[b] = float64 sum of tile b's values load(i).
+template <class Load>
+__global__ void __launch_bounds__(kThreads)
+    tile_sums(Load load, double* __restrict__ bsum, int64_t n) {
+  __shared__ double smem[kWarps];
+  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kItems;
+  double acc = 0.0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t i = base + k;
+    if (i < n) acc += (double)load(i);
+  }
+  const double s = block_sum(acc, smem);
+  if (threadIdx.x == 0) bsum[blockIdx.x] = s;
+}
+
+// Pass 2: this thread's kItems inclusive prefixes, accumulated in float64
+// (the sum of the earlier tiles, the tile's exclusive scan, then this
+// thread's items in order) and each rounded to float32.
+template <class Load>
+__device__ __forceinline__ void tile_prefix(Load load,
+                                            const double* __restrict__ bsum,
+                                            int64_t n, float (&out)[kItems],
+                                            double* smem) {
+  const int b = blockIdx.x;
+  double part = 0.0;
+  for (int k = threadIdx.x; k < b; k += kThreads) part += bsum[k];
+  const double offset = block_sum(part, smem);
+  const int64_t base = (int64_t)b * kTile + threadIdx.x * kItems;
+  float xv[kItems];
+  double tsum = 0.0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t i = base + k;
+    xv[k] = i < n ? load(i) : 0.f;
+    tsum += (double)xv[k];
+  }
+  double p = offset + block_exclusive_sum(tsum, smem);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    p += (double)xv[k];
+    out[k] = __double2float_rn(p);
+  }
+}
+
+// Pass 2 of the running max: c[] (this thread's values) maxed across the
+// tile, stored to out[], and the tile maximum to bmax[b].
+__device__ __forceinline__ void tile_cummax_store(int (&c)[kItems],
+                                                  int* __restrict__ out,
+                                                  int* __restrict__ bmax,
+                                                  int64_t n, int* smem) {
+  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kItems;
+  int run = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (base + k >= n) c[k] = INT_MIN;
+    run = max(run, c[k]);
+    c[k] = run;
+  }
+  const int ex = block_exclusive_max(run, smem);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t i = base + k;
+    if (i < n) out[i] = max(c[k], ex);
+  }
+  if (threadIdx.x == kThreads - 1) bmax[blockIdx.x] = max(run, ex);
+}
+
+// Pass 3: tile b + 1 raises its values to the maximum of tiles 0..b.
+// Values within a tile are already nondecreasing, so one read of the
+// tile's first value tells whether anything changes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cummax_carry(T* __restrict__ out, const T* __restrict__ bmax, int64_t n) {
+  __shared__ int ism[kWarps];
+  __shared__ int need;
+  const int b = blockIdx.x + 1;
+  T part = INT_MIN;
+  for (int k = threadIdx.x; k < b; k += kThreads) part = max(part, bmax[k]);
+  const T carry = block_max(part, ism);
+  const int64_t start = (int64_t)b * kTile;
+  if (threadIdx.x == 0) need = out[start] < carry;
+  __syncthreads();
+  if (!need) return;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int64_t i = start + threadIdx.x * kItems + k;
+    if (i < n) out[i] = max(out[i], carry);
+  }
+}
+
+}  // namespace cssm

@@ -1,35 +1,44 @@
-"""Bootstrap particle filter: the fused ``[d, N]`` path.
+"""Bootstrap particle filter on the ``[d, N]`` particle cloud.
 
-PyTorch port of ``_filter_impl_t_fused`` (:494), ``bootstrap_filter``
-(:784) and ``log_likelihood`` (:868) of
-``composablestatespacemodels_tpu/inference/filter.py``.  The carried cloud
-is always already propagated to the current observation time.  Each
-observed step weights it (``ll += max + log(total)``,
-ParticleFilter.scala:124-127), then two kernels run:
+PyTorch port of the transposed paths of
+``composablestatespacemodels_tpu/inference/filter.py``: the summaries
+(:47-344), ``_filter_impl_t`` (:347), ``_filter_impl_t_fused`` (:494),
+their dispatch in ``_filter_impl`` (:678-699), ``bootstrap_filter`` (:784)
+and ``log_likelihood`` (:868).  The schemes keep the JAX names, so one
+string drives both packages:
 
-* K1 (:func:`..ops.scan_kernel.systematic_counts_fused`) builds the
-  systematic counts from the normalised weights;
-* K2 + K3 (:func:`..ops.resample_kernel.resample_propagate`) resamples,
-  applies the exact transition to the next observation time with
-  in-kernel noise, and writes the next step's log-weights.
+* ``"systematic-pallas"`` / ``"stratified-pallas"`` (:func:`_filter_impl_t`):
+  each step propagates the cloud to the observation time with the exact
+  transition (torch ops, as ``model.step_t``), weights it
+  (``ll += max + log(total)``, ParticleFilter.scala:124-127), resamples --
+  the systematic counts by K1, or the stratified counts through K7a/K7b,
+  then the K4 gather -- and saves the step's summary, path or callable.
+* ``"systematic-pallas-fused"`` (alias ``"systematic-fused"``): with
+  ``store`` ``"ll"``/None and no ESS trigger, :func:`_filter_impl_t_fused`,
+  which folds each step's propagate and next weights into the resample
+  (K1, then K2 + K3).  Otherwise (a store mode needs the unpropagated
+  resampled cloud) :func:`_filter_impl_t` with the propagate and weights
+  in K5 + K3.
 
 Every per-step input (transition coefficients, design vector, observation
-constants, uniforms, seeds) is computed in one batched pass before the
-loop, the mask is read on the host once, and ``ll``/``ess`` stay on the
-device until the end: the loop body only slices and launches, and never
-waits for the device.  A missing observation propagates with plain torch
-ops and carries the weights (ParticleFilter.scala:120-121).  The last step
-uses ``dt = 0``, an identity transition, so ``final_particles`` is the
-filtering cloud at the last time.
+constants, seeds, uniforms, the store's draws) is computed in one batched
+pass before the loop, the mask is read on the host once, and ``ll``/``ess``
+stay on the device until the end: the loop body only slices and launches,
+and never waits for the device -- except under ``ess_threshold``, where
+whether to resample depends on the step's ESS: one host read per observed
+step on that path only.  A missing observation propagates only and carries
+the weights (ParticleFilter.scala:120-121).
 
-The resample scheme is named ``"systematic-fused"``.  The other schemes,
-store modes, the ESS trigger, forecasting and the Euler-Maruyama path are
-ROADMAP Queue 1 item 6.
+The generic ``[N, d]`` path (the ``"systematic"``, ``"stratified"``,
+``"multinomial"``, ``"residual"`` and ``"identity"`` schemes, custom
+schemes, Euler-Maruyama models), the other observation families and
+forecasting are ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -38,13 +47,81 @@ from ..models.model import Model
 from ..models.observation import KERNEL_CONSTS
 from ..models.params import params_to
 from ..models.tree import Tree
-from ..ops.resample_kernel import resample_propagate
+from ..ops.resample_kernel import (propagate_weights_t, resample_propagate,
+                                   sorted_gather_resample_t)
 from ..ops.scan_kernel import systematic_counts_fused
+from ..ops.selection import kth_smallest_bits, weighted_quantile_bits
 from ..utils.data import TimeSeries
+from . import resampling as rs
 
-_SCHEME = "systematic-fused"
+_FUSED = ("systematic-pallas-fused", "systematic-fused")
+_COUNTS = {"systematic-pallas": "systematic",
+           "stratified-pallas": "stratified"}
+_GENERIC = ("systematic", "stratified", "multinomial", "residual",
+            "identity")
 _LATER = ("is not ported yet (ROADMAP.md Queue 1 item 6); the PyTorch port "
-          f"runs resample={_SCHEME!r} with store='ll' and always-resample")
+          f"runs resample in {sorted((*_COUNTS, *_FUSED))}")
+
+
+# ---------------------------------------------------------------------------
+# summaries
+# ---------------------------------------------------------------------------
+
+
+def credible_interval_eta(samples: torch.Tensor, interval: float = 0.975):
+    """Order-statistic interval, eta flavour (ParticleFilter.scala:455-460):
+    ``sorted[n - idx]``, ``sorted[min(idx, n - 1)]``,
+    ``idx = floor(n * interval)``."""
+    n = samples.shape[0]
+    idx = math.floor(n * interval)
+    s = torch.sort(samples, dim=0).values
+    return s[n - idx], s[min(idx, n - 1)]
+
+
+def credible_interval_state(samples: torch.Tensor, interval: float = 0.975):
+    """Order-statistic interval, state flavour, off by one as in the
+    reference (ParticleFilter.scala:488-502): ``sorted[n - idx - 1]``,
+    ``sorted[idx - 1]``.  Works on ``[N]`` or ``[N, d]`` (per column)."""
+    n = samples.shape[0]
+    idx = math.floor(n * interval)
+    s = torch.sort(samples, dim=0).values
+    return s[n - idx - 1], s[idx - 1]
+
+
+def _interval_levels(n: int, interval: float):
+    """Weighted-CDF levels equivalent to the unweighted order-statistic
+    indices of :func:`credible_interval_state` / :func:`credible_interval_eta`
+    (for uniform weights the smallest x with weighted CDF >= (j+1)/n is
+    ``sorted[j]``), indices wrapped mod n as the transposed path does.
+    Returns ``(state_levels, eta_levels)``, each ``(lower, upper)``."""
+    idx = math.floor(n * interval)
+    j_s = ((n - idx - 1) % n, (idx - 1) % n)        # state flavour
+    j_e = ((n - idx) % n, min(idx, n - 1))          # eta flavour
+    return (tuple((j + 1) / n for j in j_s),
+            tuple((j + 1) / n for j in j_e))
+
+
+def _weighted_pick(wn: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Index of one particle sampled with probability proportional to
+    ``wn`` by inverse CDF at the uniform ``u``: the weighted ``sampleOne``
+    of ``store='path'`` when ``ess_threshold`` leaves the carried weights
+    non-uniform."""
+    j = torch.searchsorted(torch.cumsum(wn, dim=0), u * torch.sum(wn))
+    return torch.clamp(j, 0, wn.shape[0] - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PfSummary:
+    """Per-step filtering summaries (the reference ``PfOut``,
+    ParticleFilter.scala:53-59 + getIntervals :415-424)."""
+
+    ts: torch.Tensor           # [T]
+    eta_mean: torch.Tensor     # [T]     link(f(mean state, t))
+    eta_lower: torch.Tensor    # [T]
+    eta_upper: torch.Tensor    # [T]
+    state_mean: torch.Tensor   # [T, d]
+    state_lower: torch.Tensor  # [T, d]
+    state_upper: torch.Tensor  # [T, d]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +129,73 @@ class FilterResult:
     """Output of :func:`bootstrap_filter` (reference ``PfState``,
     ParticleFilter.scala:32-37)."""
 
-    ll: torch.Tensor               # scalar
-    ll_history: torch.Tensor       # [T]
-    ess: torch.Tensor              # [T] int32
-    final_particles: torch.Tensor  # [N, d]
+    ll: torch.Tensor                        # scalar
+    ll_history: torch.Tensor                # [T]
+    ess: torch.Tensor                       # [T] int32
+    final_particles: torch.Tensor           # [N, d]
+    summary: Optional[PfSummary] = None     # store='summary'
+    sampled_path: Optional[torch.Tensor] = None  # [T, d], store='path'
+
+
+def _make_save_fn_t(model: Model, store, interval: float, weighted: bool,
+                    generator: torch.Generator, n_steps: int, n: int):
+    """The per-step save of the ``[d, N]`` cloud after resampling:
+    ``save(i, t, g, x_t, wn)`` with ``g`` the design vector at ``t`` and
+    ``wn`` the carried normalised weights.  With ``weighted`` (an
+    ``ess_threshold`` can skip resamples, leaving ``wn`` non-uniform) the
+    summaries and paths are weight-aware; otherwise ``wn`` is uniform at
+    every save and the reference's unweighted semantics apply
+    (ParticleFilter.scala:415-424).  Random draws (``store='path'``) are
+    made here, for every step at once."""
+    if store == "ll" or store is None:
+        return lambda i, t, g, x_t, wn: None
+    device = generator.device
+    if store == "path":
+        if weighted:
+            u = torch.rand(n_steps, generator=generator, device=device)
+            return lambda i, t, g, x_t, wn: x_t[:, _weighted_pick(wn, u[i])]
+        # one uniformly sampled particle per step (reference filter(),
+        # ParticleFilter.scala:152-158 + Resampling.sampleOne)
+        pick = torch.randint(0, n, (n_steps,), generator=generator,
+                             device=device)
+        return lambda i, t, g, x_t, wn: x_t[:, pick[i]]
+    if store == "summary":
+        d = model.dim
+        # bisection selection in place of a [d, N] sort per step: exact,
+        # bit-identical order statistics; indices wrap mod n, as the sort
+        # path's negative indices do at edge intervals (filter.py:322-331)
+        if weighted:
+            ps_s, ps_e = _interval_levels(n, interval)
+            levels = torch.tensor([list(ps_s)] * d + [list(ps_e)],
+                                  dtype=torch.float32, device=device)
+        else:
+            k = math.floor(n * interval)
+            levels = torch.tensor([[(n - k - 1) % n, (k - 1) % n]] * d
+                                  + [[(n - k) % n, min(k, n - 1)]],
+                                  dtype=torch.int32, device=device)
+
+        def save(i, t, g, x_t, wn):
+            cols = torch.cat([x_t, model.link(g @ x_t)[None]])
+            if weighted:
+                mean = torch.sum(wn[None, :] * x_t, dim=1) / torch.sum(wn)
+                sel = weighted_quantile_bits(cols, wn, levels)
+            else:
+                mean = torch.mean(x_t, dim=1)
+                sel = kth_smallest_bits(cols, levels)          # [d + 1, 2]
+            return (model.link(mean @ g), sel[d, 0], sel[d, 1],
+                    mean, sel[:d, 0], sel[:d, 1])
+        return save
+    if callable(store):
+        # the documented (t, particles [N, d], key) contract, with the
+        # filter's generator for the key; its value is dropped, as the JAX
+        # package drops it (FilterResult has no field for it)
+        return lambda i, t, g, x_t, wn: store(t, x_t.T, generator)
+    raise ValueError(f"unknown store mode {store!r}")
+
+
+# ---------------------------------------------------------------------------
+# the filter
+# ---------------------------------------------------------------------------
 
 
 def _step_seeds(generator: torch.Generator, n_steps: int) -> torch.Tensor:
@@ -76,15 +216,122 @@ def _weights(model, params, x_t, t, y, mask):
                              torch.where(mask, y, 0.0))
 
 
+def _initial_cloud(model: Model, params: Tree, generator, n: int, x_init):
+    """The initial ``[d, N]`` cloud: drawn, a fixed state ``[d]`` for every
+    particle (FilterInit, ParticleFilter.scala:252-271) or a cloud
+    ``[N, d]``."""
+    if x_init is None:
+        return model.initial_state_t(params, generator, n)
+    x_init = torch.as_tensor(x_init, dtype=torch.float32,
+                             device=generator.device)
+    return (x_init[:, None].expand(model.dim, n) if x_init.ndim == 1
+            else x_init.T).contiguous()
+
+
+def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
+                   n_particles: int, generator: torch.Generator, t0, x_init,
+                   store, ess_threshold, interval: float,
+                   fused_propagate: bool, counts_scheme: str) -> FilterResult:
+    """Per step: propagate to the observation time (torch ops, or K5 with
+    ``fused_propagate``), weight, update ll and ESS, resample through the
+    counts of ``counts_scheme`` and the K4 gather, save."""
+    device = generator.device
+    params = params_to(params, device)
+    sp = model.sde_params(params)
+    d, n = model.dim, n_particles
+    ts, ys, mask = data.ts, data.ys, data.mask
+    observed = mask.tolist()  # host copy, read once
+    n_steps = len(observed)
+    save = _make_save_fn_t(model, store, interval, ess_threshold is not None,
+                           generator, n_steps, n)
+
+    x = _initial_cloud(model, params, generator, n, x_init)
+    t_start = ts[:1] if t0 is None else torch.tensor(
+        [t0], dtype=torch.float32, device=device)
+    # every step's inputs, in one batched pass
+    a, b, q = model.sde.transition_coeffs(
+        sp, ts - torch.cat([t_start, ts[:-1]]))                  # [T, d]
+    design = model.design_vector(ts)                             # [T, d]
+    y_safe = torch.where(mask, ys, 0.0)
+    cols = [a, b, torch.sqrt(q)]
+    family_id = None
+    if fused_propagate:
+        wspec = model.obs.kernel_log_density()
+        if wspec is not None:
+            make_consts, family_id = wspec
+            cols.append(design)
+            c = make_consts(y_safe, model.obs_scale(params))
+            consts = torch.zeros((n_steps, KERNEL_CONSTS),
+                                 dtype=torch.float32, device=device)
+            consts[:, :c.shape[-1]] = c
+        seeds = _step_seeds(generator, n_steps)
+    coef = torch.stack(cols, dim=-1).contiguous()                # [T, d, 3|4]
+    if counts_scheme == "stratified":
+        uniforms = torch.rand((n_steps, n), generator=generator,
+                              device=device)
+        counts_fn = rs.stratified_counts
+    else:
+        uniforms = torch.rand(n_steps, generator=generator, device=device)
+        counts_fn = rs.systematic_counts
+    scale = model.obs_scale(params)
+
+    uniform_w = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+    wn = uniform_w
+    ll = torch.zeros((), dtype=torch.float32, device=device)
+    ess = torch.tensor(n, dtype=torch.int32, device=device)
+    saved, ll_hist, ess_hist = [], [], []
+    for i in range(n_steps):
+        logw = None
+        if fused_propagate:
+            x1, logw = propagate_weights_t(
+                x, coef[i], None if family_id is None else consts[i],
+                seeds[i], family_id)
+        else:
+            z = torch.randn((d, n), generator=generator, device=device)
+            x1 = coef[i, :, 0:1] * x + coef[i, :, 1:2] + coef[i, :, 2:3] * z
+        resample = False
+        if observed[i]:
+            if logw is None:
+                logw = model.obs.log_density(design[i] @ x1, y_safe[i], scale)
+            maxw = torch.max(logw)
+            u = wn * torch.exp(logw - maxw)
+            total = torch.sum(u)
+            ll = ll + (maxw + torch.log(total))
+            wn1 = u / total
+            ess = torch.floor(1.0 / torch.sum(wn1 * wn1)).to(torch.int32)
+            # the one host read per step, and only under an ESS trigger
+            resample = (ess_threshold is None
+                        or int(ess) < ess_threshold * n)
+        else:
+            wn1 = wn / torch.sum(wn)
+        if resample:
+            x = sorted_gather_resample_t(x1, counts_fn(wn1, uniforms[i]))
+            wn = uniform_w
+        else:
+            x, wn = x1, wn1
+        saved.append(save(i, ts[i], design[i], x, wn))
+        ll_hist.append(ll)
+        ess_hist.append(ess)
+
+    summary = path = None
+    if store == "summary":
+        summary = PfSummary(ts, *(torch.stack(v) for v in zip(*saved)))
+    elif store == "path":
+        path = torch.stack(saved)
+    return FilterResult(ll, torch.stack(ll_hist), torch.stack(ess_hist), x.T,
+                        summary, path)
+
+
 def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
                          n_particles: int, generator: torch.Generator,
                          t0, x_init) -> FilterResult:
+    """The carried cloud is already propagated to the step's time: weight
+    it, build the systematic counts (K1), then resample, propagate to the
+    next observation time and weight there in one kernel (K2 + K3).  The
+    last step uses ``dt = 0``, so ``final_particles`` is the filtering
+    cloud at the last time."""
     device = generator.device
-    wspec = model.obs.kernel_log_density()
-    if wspec is None:
-        raise NotImplementedError(
-            f"{type(model.obs).__name__} has no kernel weight hook: {_LATER}")
-    make_consts, family_id = wspec
+    make_consts, family_id = model.obs.kernel_log_density()
     params = params_to(params, device)
     sp = model.sde_params(params)
     d, n = model.dim, n_particles
@@ -92,12 +339,7 @@ def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
     observed = mask.tolist()  # host copy, read once
     n_steps = len(observed)
 
-    if x_init is None:
-        x = model.initial_state_t(params, generator, n)
-    else:
-        x_init = torch.as_tensor(x_init, dtype=torch.float32, device=device)
-        x = (x_init[:, None].expand(d, n) if x_init.ndim == 1
-             else x_init.T).contiguous()
+    x = _initial_cloud(model, params, generator, n, x_init)
     t_start = ts[0] if t0 is None else torch.as_tensor(
         t0, dtype=torch.float32, device=device)
     # pre-propagate to the first observation time
@@ -150,11 +392,12 @@ def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
 
 def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
                      n_particles: int, generator: torch.Generator, *,
-                     resample: str = _SCHEME,
+                     resample: str = "systematic-fused",
                      t0: Optional[float] = None,
                      initial_state=None,
-                     store="ll",
-                     ess_threshold: Optional[float] = None) -> FilterResult:
+                     store="summary",
+                     ess_threshold: Optional[float] = None,
+                     interval: float = 0.975) -> FilterResult:
     """Run the bootstrap particle filter over a time series.
 
     Args:
@@ -166,29 +409,46 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
       generator: ``torch.Generator`` for every random draw; the filter
         runs on its device (CUDA kernels on a card, their plain PyTorch
         versions on the CPU).
-      resample: ``"systematic-fused"``.
+      resample: ``"systematic-pallas"``, ``"stratified-pallas"`` or
+        ``"systematic-pallas-fused"`` (alias ``"systematic-fused"``, the
+        propagate with in-kernel noise: statistically, not bitwise,
+        equivalent to the others).
       t0: start time (default: the first observation time).
       initial_state: optional fixed initial state ``[d]`` or cloud ``[N, d]``.
-      store: ``"ll"`` (or None).
-      ess_threshold: must be None (always resample).
+      store: ``"summary"`` (per-step :class:`PfSummary`), ``"path"`` (one
+        sampled state per step, ``[T, d]``), ``"ll"`` or None (ll and ESS
+        only), or a callable ``(t, particles [N, d], generator)`` called
+        after every step.
+      ess_threshold: if set, resample only when ESS < threshold * N (the
+        reference always resamples; summaries and paths then weigh the
+        carried weights).  Costs one host read per observed step.
+      interval: credible-interval level of the summaries.
     """
-    if resample != _SCHEME:
+    if resample in _GENERIC or callable(resample):
         raise NotImplementedError(f"resample={resample!r} {_LATER}")
-    if store not in ("ll", None):
-        raise NotImplementedError(f"store={store!r} {_LATER}")
-    if ess_threshold is not None:
-        raise NotImplementedError(f"ess_threshold={ess_threshold!r} {_LATER}")
+    if resample not in _FUSED and resample not in _COUNTS:
+        raise ValueError(f"unknown resampling scheme {resample!r}; choose "
+                         f"from {sorted((*_COUNTS, *_FUSED, *_GENERIC))}")
+    if not (store in ("ll", "summary", "path", None) or callable(store)):
+        raise ValueError(f"unknown store mode {store!r}")
     if data.ts.device != generator.device:
         raise ValueError(f"data on {data.ts.device} but generator on "
                          f"{generator.device}")
     model.validate_params(params)
-    return _filter_impl_t_fused(model, params, data, n_particles, generator,
-                                t0, initial_state)
+    if (resample in _FUSED and store in ("ll", None) and ess_threshold is None
+            and model.obs.kernel_log_density() is not None):
+        return _filter_impl_t_fused(model, params, data, n_particles,
+                                    generator, t0, initial_state)
+    return _filter_impl_t(model, params, data, n_particles, generator, t0,
+                          initial_state, store, ess_threshold, interval,
+                          fused_propagate=resample in _FUSED,
+                          counts_scheme=_COUNTS.get(resample, "systematic"))
 
 
 def log_likelihood(model: Model, params: Tree, data: TimeSeries,
                    n_particles: int, generator: torch.Generator, *,
-                   resample: str = _SCHEME, **kwargs) -> torch.Tensor:
+                   resample: str = "systematic-fused",
+                   **kwargs) -> torch.Tensor:
     """Log marginal-likelihood estimate only (reference ``llFilter``,
     ParticleFilter.scala:137-140)."""
     return bootstrap_filter(model, params, data, n_particles, generator,

@@ -1,30 +1,124 @@
-"""Systematic resampling as cumulative position counts: the main-path part
-of ``composablestatespacemodels_tpu/inference/resampling.py``.
+"""Systematic and stratified resampling as cumulative position counts: the
+count producers of ``composablestatespacemodels_tpu/inference/resampling.py``.
 
-Resampling works on *counts*: ``counts[i]`` is the number of systematic
-positions ``(j + u) / n`` strictly below ``cdf[i]``, so particle ``i`` owns
-output slots ``[counts[i-1], counts[i])`` and the ancestor of slot ``j`` is
-the first ``i`` with ``counts[i] > j`` (Resampling.scala:63-72).  These
-functions are the plain versions that the K1 and K2 kernels
-(``ops/scan_kernel.py``, ``ops/resample_kernel.py``) are held against.
+Resampling works on *counts*: ``counts[i]`` is the number of resampling
+positions strictly below ``cdf[i]``, so particle ``i`` owns output slots
+``[counts[i-1], counts[i])`` and the ancestor of slot ``j`` is the first
+``i`` with ``counts[i] > j`` (Resampling.scala:63-86).  The gather kernels
+(K2, K4 in ``ops/resample_kernel.py``) consume any such counts.
+
+As in the JAX package, the prefix sum and the running max route to the
+device kernels (K7a :func:`..ops.scan_kernel.prefix_sum`, K7b
+:func:`..ops.scan_kernel.cummax_int32`) for CUDA float32 / int32 ``[N]``
+tensors, and the systematic counts to K1 (``resampling.py:40-62, 127-136``
+of the JAX package); elsewhere the plain versions run.
 
 The prefix sum accumulates in float64 and rounds each entry to float32.
-The result is then the float32 rounding of the exact prefix on every
-device and for every summation order, so the CUDA kernel and this plain
-version see the same cdf bits (a float32 prefix moves by ulps with the
-summation order, and an ulp moves a count by one at ties --
-``resampling.py:26-63`` of the JAX package).
+:func:`_cumsum_ref` replays the kernels' association order
+(``csrc/scan.cuh``: a tile of 1024 threads x 4 items, warp-shuffle trees),
+so the kernels and their plain versions see the same cdf bits (a float32
+prefix moves by ulps with the summation order, and an ulp moves a count by
+one at ties -- ``resampling.py:26-63`` of the JAX package).
 """
 
 from __future__ import annotations
 
 import torch
 
+_THREADS, _ITEMS = 1024, 4   # csrc/scan.cuh: kThreads, kItems
+_TILE = _THREADS * _ITEMS
+
+
+def _warp_tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """``__shfl_down_sync`` reduction over the last axis (32): lane l adds
+    lane l + o for o = 16, 8, 4, 2, 1; returns lane 0."""
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """``scan.cuh::block_sum`` over the last axis (1024 threads)."""
+    return _warp_tree_sum(_warp_tree_sum(v.unflatten(-1, (32, 32))))
+
+
+def _warp_inclusive(v: torch.Tensor) -> torch.Tensor:
+    """``__shfl_up_sync`` Kogge-Stone inclusive scan over the last axis."""
+    for o in (1, 2, 4, 8, 16):
+        v = torch.cat([v[..., :o], v[..., o:] + v[..., :-o]], dim=-1)
+    return v
+
+
+def _shift_right(v: torch.Tensor) -> torch.Tensor:
+    """Exclusive from inclusive: lane l takes lane l - 1, lane 0 takes 0."""
+    return torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], dim=-1)
+
+
+def _cumsum_ref(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of float ``x [N]``: float64 accumulation in the
+    association order of the kernels (``csrc/scan.cuh``), each entry
+    rounded to float32.  The plain version of K7a and of K1's prefix."""
+    n = x.shape[0]
+    tiles = -(-n // _TILE)
+    v = torch.zeros(tiles * _TILE, dtype=torch.float64, device=x.device)
+    v[:n] = x.to(torch.float64)
+    v = v.view(tiles, _THREADS, _ITEMS)
+    tsum = v[..., 0]
+    for k in range(1, _ITEMS):
+        tsum = tsum + v[..., k]                           # [tiles, 1024]
+    bsum = _block_sum(tsum)                               # pass 1, [tiles]
+    # the sum of the tiles before tile b: thread k adds tiles k, k + 1024,
+    # ... below b in turn, then the block sums the threads' parts
+    rounds = -(-tiles // _THREADS)
+    padded = torch.zeros(rounds * _THREADS, dtype=torch.float64,
+                         device=x.device)
+    padded[:tiles] = bsum
+    padded = padded.view(rounds, _THREADS)
+    below = (torch.arange(rounds * _THREADS, device=x.device).view(
+        rounds, _THREADS)[None] < torch.arange(
+            tiles, device=x.device)[:, None, None])       # [tiles, rounds, T]
+    part = torch.where(below[:, 0], padded[0], 0.0)
+    for r in range(1, rounds):
+        part = part + torch.where(below[:, r], padded[r], 0.0)
+    offset = _block_sum(part)                             # [tiles]
+    # the tile's exclusive scan of the threads' sums
+    incl = _warp_inclusive(tsum.view(tiles, 32, 32))
+    warp_ex = _shift_right(_warp_inclusive(incl[..., 31]))   # [tiles, 32]
+    res = warp_ex[..., None] + _shift_right(incl)            # [tiles, 32, 32]
+    p = offset[:, None] + res.view(tiles, _THREADS)
+    out = torch.empty_like(v)
+    for k in range(_ITEMS):
+        p = p + v[..., k]
+        out[..., k] = p
+    return out.view(-1)[:n].to(torch.float32)
+
+
+def _check_device(x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no resampling path for device {x.device}")
+
 
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum of float32 ``x``: float64 accumulation, each
-    entry rounded to float32."""
-    return torch.cumsum(x.double(), dim=0).float()
+    """Inclusive prefix sum (float64 accumulation, float32 entries): K7a
+    for a CUDA float32 ``[N]`` tensor, :func:`_cumsum_ref` elsewhere."""
+    _check_device(x)
+    if x.device.type == "cuda" and x.dtype == torch.float32 and x.ndim == 1:
+        from ..ops.scan_kernel import prefix_sum
+        return prefix_sum(x)
+    return _cumsum_ref(x)
+
+
+def _monotone_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Exact running max of int32 counts (the float32 cdf of a prefix can
+    dip, so ``ceil(n*cdf - u)`` can too; every consumer needs
+    nondecreasing counts): K7b for a CUDA int32 ``[N]`` tensor,
+    ``torch.cummax`` elsewhere."""
+    _check_device(counts)
+    if (counts.device.type == "cuda" and counts.dtype == torch.int32
+            and counts.ndim == 1):
+        from ..ops.scan_kernel import cummax_int32
+        return cummax_int32(counts)
+    return torch.cummax(counts, dim=0).values
 
 
 def _counts_from_cdf(cdf: torch.Tensor, u, n: int) -> torch.Tensor:
@@ -41,10 +135,48 @@ def _counts_from_cdf(cdf: torch.Tensor, u, n: int) -> torch.Tensor:
 
 def systematic_counts(weights: torch.Tensor, u, n: int | None = None):
     """Monotone cumulative position counts for systematic resampling,
-    from weights and the uniform draw ``u`` (0-d tensor or float).
-    Reference semantics: Resampling.scala:63-72."""
-    n = weights.shape[0] if n is None else n
+    from weights and the uniform draw ``u`` (0-d tensor or float).  K1
+    for CUDA float32 ``[N]`` weights.  Reference semantics:
+    Resampling.scala:63-72."""
+    m = weights.shape[0]
+    n = m if n is None else n
+    _check_device(weights)
+    if (weights.device.type == "cuda" and weights.dtype == torch.float32
+            and weights.ndim == 1 and n == m):
+        from ..ops.scan_kernel import systematic_counts_fused
+        u = torch.as_tensor(u, dtype=torch.float32, device=weights.device)
+        return systematic_counts_fused(weights, weights.sum(), u)
     return _counts_from_cdf(_cumsum(weights / weights.sum()), u, n)
+
+
+def _stratified_from_cdf(cdf: torch.Tensor, u: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """Stratified counts before the running max: ``k + (u[k] < n*c - k)``
+    with ``k = floor(n*c)``, clipped to ``[0, n]``, ``counts[-1] = n``."""
+    v = n * cdf
+    k = torch.floor(v).to(torch.int32)
+    k_safe = torch.clamp(k, 0, n - 1).long()
+    extra = (u[k_safe] < (v - k)).to(torch.int32)
+    counts = torch.clamp(torch.where(k >= n, n, k + extra), 0, n)
+    counts[-1] = n
+    return counts.to(torch.int32)
+
+
+def stratified_counts(weights: torch.Tensor, u: torch.Tensor,
+                      n: int | None = None):
+    """Monotone cumulative position counts for stratified resampling.
+
+    Position j lies in ``[j/n, (j+1)/n)`` at ``(j + u[j]) / n``, so the
+    count below cdf value c is ``k + (u[k] < n*c - k)`` with
+    ``k = floor(n*c)`` -- elementwise, no search.  ``u`` is the ``[n]``
+    uniforms (the JAX package draws them from its key).  On a CUDA device
+    the prefix is K7a and the running max K7b.  Reference semantics:
+    Resampling.scala:78-86; ``stratified_counts`` (:143) of the JAX
+    package.
+    """
+    n = weights.shape[0] if n is None else n
+    return _monotone_counts(_stratified_from_cdf(
+        _cumsum(weights / weights.sum()), u, n))
 
 
 def _ancestors_from_counts(counts: torch.Tensor, n_out: int) -> torch.Tensor:

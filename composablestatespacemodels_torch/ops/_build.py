@@ -1,10 +1,11 @@
 """Build and load the hand-written Hopper kernels in ``csrc/``.
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (a source
-that includes PyTorch's headers takes minutes to build; this takes
-seconds).  The library goes into ``composablestatespacemodels_torch/_build/
-<hash>/``, keyed by a hash of the sources and flags, so an unchanged tree
+The kernels are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (a source that
+includes PyTorch's headers takes minutes to build; this takes seconds).
+The library goes into ``composablestatespacemodels_torch/_build/<hash>/``,
+keyed by a hash of the sources and flags, so an unchanged tree
 does not rebuild.  Nothing here runs at import time.
 
 Every C entry takes device pointers and the CUDA stream as ``void*``, the
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 # entry name -> argtypes (see the extern "C" functions in csrc/*.cu)
@@ -37,6 +38,13 @@ _SIGNATURES = {
     "cssm_resample_propagate": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                 _P],
+    "cssm_prefix_sum": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "cssm_cummax_int32": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "cssm_gather": [_P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                    _P],
+    "cssm_propagate_weights": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                               ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                               _P],
 }
 
 _lock = threading.Lock()
@@ -70,8 +78,9 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    The compiler's output (``-Xptxas -v``: registers, spills) is kept in
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, all running at once, then one link.  The
+    compilers' output (``-Xptxas -v``: registers, spills) is kept in
     ``build.log`` beside the library."""
     out = library_path()
     if out.exists():
@@ -79,17 +88,28 @@ def build() -> Path:
     nvcc = _nvcc()
     cus, _ = _sources()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, cus)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [Path(tmpdir) / (cu.stem + ".o") for cu in cus]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)]
+                for cu, obj in zip(cus, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [p.communicate()[0] for p in procs]
+        lib_tmp = Path(tmpdir) / out.name
+        link = [nvcc, "-shared", "-o", str(lib_tmp), *map(str, objs)]
+        failed = [(cmd, log) for cmd, log, p in zip(cmds, logs, procs)
+                  if p.returncode != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed = [(link, proc.stdout + proc.stderr)]
+        (out.parent / "build.log").write_text("".join(
+            " ".join(cmd) + "\n" + log for cmd, log in zip(cmds, logs)))
+        if failed:
+            cmd, log = failed[0]
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log[-4000:]}")
+        os.replace(lib_tmp, out)
     return out
 
 

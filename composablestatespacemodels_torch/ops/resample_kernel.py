@@ -1,5 +1,7 @@
-"""K2 + K3: fused systematic resample, exact affine-Gaussian propagate and
-next-step log-weights on the ``[d, N]`` cloud.
+"""The kernels on the ``[d, N]`` cloud: K2 + K3, the fused resample, exact
+affine-Gaussian propagate and next-step log-weights; K4, the plain
+resampling gather; K5 (+ K3), the standalone propagate with optional
+log-weights.
 
 Replaces ``composablestatespacemodels_tpu/ops/resample_kernel.py``'s
 ``sorted_gather_resample_propagate_t`` (:667) and the Gaussian/Poisson
@@ -26,9 +28,18 @@ bits with int64 tensor ops (32-bit products in 16-bit halves), so the
 plain version :func:`resample_propagate_ref` draws identical normals and
 the card can compare kernel and plain version value by value.
 
-:func:`resample_propagate` launches the kernel for CUDA tensors and raises
-for any device it cannot serve; for CPU tensors (the tests) it computes
-the plain version.
+K4 (:func:`sorted_gather_resample_t`, replacing ``sorted_gather_resample_t``
+:616, ``csrc/gather.cu``) is K2 without the propagate: ``y[:, j] =
+x[:, anc_j]``, bit for bit ``x[:, _ancestors_from_counts(counts, N)]``.
+K5 (:func:`propagate_weights_t`, replacing ``propagate_weights_t`` :756,
+``csrc/propagate_weights.cu``) is K2 without the resample: ``y = a * x +
+b + s * z`` with the same Philox noise, plus the log-weights when a family
+is given.  The plain version of K2 is the plain K4 followed by the plain
+K5.
+
+Each wrapper launches its kernel for CUDA tensors and raises for any
+device it cannot serve; for CPU tensors (the tests) it computes its
+``*_ref`` plain version.  Each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -92,19 +103,120 @@ def philox_normals(seed: torch.Tensor, d: int, n: int) -> torch.Tensor:
     return torch.stack(rows[:d])
 
 
-def resample_propagate_ref(x: torch.Tensor, counts: torch.Tensor,
-                           coef: torch.Tensor, consts: torch.Tensor,
-                           seed: torch.Tensor, family_id: int):
-    """Plain PyTorch version of K2 + K3, in the kernel's operation order."""
+def _check(t: torch.Tensor, dtype, shape, name: str, dev) -> None:
+    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def _check_weighting(consts, seed, family_id, dev) -> None:
+    if family_id is not None:
+        if family_id not in _KERNEL_FNS:
+            raise ValueError(f"no K3 device function for family {family_id}")
+        if (consts.device != dev or consts.dtype != torch.float32
+                or consts.ndim != 1 or not consts.is_contiguous()):
+            raise ValueError("consts must be a contiguous float32 row on "
+                             f"{dev}")
+    if seed.device != dev or seed.dtype != torch.int32 or seed.numel() != 1:
+        raise ValueError(f"seed must be one int32 element on {dev}")
+
+
+def sorted_gather_resample_t_ref(x: torch.Tensor,
+                                 counts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4: ``x[:, _ancestors_from_counts(counts,
+    N)]``."""
+    return x[:, _ancestors_from_counts(counts, x.shape[1]).long()]
+
+
+def sorted_gather_resample_t(x: torch.Tensor,
+                             counts: torch.Tensor) -> torch.Tensor:
+    """``y[:, j] = x[:, first i with counts[i] > j]`` on ``x [d, N]`` for
+    nondecreasing int32 ``counts [N]`` with ``counts[-1] == N``."""
+    if x.device.type == "cpu":
+        return sorted_gather_resample_t_ref(x, counts)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K4 kernel for device {x.device}")
     d, n = x.shape
-    anc = _ancestors_from_counts(counts, n).long()
+    _check(x, torch.float32, (d, n), "x", x.device)
+    _check(counts, torch.int32, (n,), "counts", x.device)
+    y = torch.empty_like(x)
+    err = _build.lib().cssm_gather(x.data_ptr(), counts.data_ptr(),
+                                   y.data_ptr(), d, n, x.device.index,
+                                   _build.cuda_stream(x.device))
+    _build.check(err, "cssm_gather")
+    sorted_gather_resample_t.launches += 1
+    return y
+
+
+sorted_gather_resample_t.launches = 0
+
+
+def sorted_gather_resample(x: torch.Tensor,
+                           counts: torch.Tensor) -> torch.Tensor:
+    """``[N, d]`` boundary wrapper of :func:`sorted_gather_resample_t`
+    (``sorted_gather_resample`` :835): ``x[_ancestors_from_counts(counts,
+    N)]``."""
+    return sorted_gather_resample_t(x.T.contiguous(), counts).T
+
+
+def propagate_weights_t_ref(x: torch.Tensor, coef: torch.Tensor,
+                            consts, seed: torch.Tensor, family_id):
+    """Plain PyTorch version of K5 (+ K3), in the kernel's operation
+    order."""
+    d, n = x.shape
     z = philox_normals(seed, d, n)
-    a, b, s, design = (coef[:, k, None] for k in range(4))
-    y = a * x[:, anc] + b + s * z
+    a, b, s = (coef[:, k, None] for k in range(3))
+    y = a * x + b + s * z
+    if family_id is None:
+        return y, None
+    design = coef[:, 3]
     gamma = design[0] * y[0]
     for r in range(1, d):
         gamma = gamma + design[r] * y[r]
     return y, kernel_fn(family_id)(gamma, consts)
+
+
+def propagate_weights_t(x: torch.Tensor, coef: torch.Tensor, consts,
+                        seed: torch.Tensor, family_id=None):
+    """Propagate ``x [d, N]`` with ``coef`` -- ``[d, 3]`` (a, b, sqrt(q))
+    or, with a family, ``[d, 4]`` (+ design) -- and the Philox normals of
+    ``seed``; returns ``(y [d, N], logw [N])``, ``logw`` None without a
+    family (``family_id`` None, ``consts`` unused)."""
+    if x.device.type == "cpu":
+        return propagate_weights_t_ref(x, coef, consts, seed, family_id)
+    if x.device.type != "cuda":
+        raise ValueError(f"no K5 kernel for device {x.device}")
+    d, n = x.shape
+    dev = x.device
+    _check(x, torch.float32, (d, n), "x", dev)
+    _check(coef, torch.float32, (d, 3 if family_id is None else 4), "coef",
+           dev)
+    _check_weighting(consts, seed, family_id, dev)
+    y = torch.empty_like(x)
+    logw = (None if family_id is None
+            else torch.empty(n, dtype=torch.float32, device=dev))
+    err = _build.lib().cssm_propagate_weights(
+        x.data_ptr(), coef.data_ptr(),
+        None if family_id is None else consts.data_ptr(), seed.data_ptr(),
+        y.data_ptr(), None if logw is None else logw.data_ptr(), d, n,
+        -1 if family_id is None else family_id, dev.index,
+        _build.cuda_stream(dev))
+    _build.check(err, "cssm_propagate_weights")
+    propagate_weights_t.launches += 1
+    return y, logw
+
+
+propagate_weights_t.launches = 0
+
+
+def resample_propagate_ref(x: torch.Tensor, counts: torch.Tensor,
+                           coef: torch.Tensor, consts: torch.Tensor,
+                           seed: torch.Tensor, family_id: int):
+    """Plain PyTorch version of K2 + K3: the plain K4, then the plain K5."""
+    return propagate_weights_t_ref(sorted_gather_resample_t_ref(x, counts),
+                                   coef, consts, seed, family_id)
 
 
 def resample_propagate(x: torch.Tensor, counts: torch.Tensor,
@@ -119,25 +231,10 @@ def resample_propagate(x: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"no K2 kernel for device {x.device}")
     d, n = x.shape
     dev = x.device
-    checks = [
-        (x, torch.float32, (d, n), "x"),
-        (counts, torch.int32, (n,), "counts"),
-        (coef, torch.float32, (d, 4), "coef"),
-    ]
-    for t, dtype, shape, name in checks:
-        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    if (consts.device != dev or consts.dtype != torch.float32
-            or consts.ndim != 1 or not consts.is_contiguous()):
-        raise ValueError("consts must be a contiguous float32 row on "
-                         f"{dev}")
-    if seed.device != dev or seed.dtype != torch.int32 or seed.numel() != 1:
-        raise ValueError(f"seed must be one int32 element on {dev}")
-    if family_id not in _KERNEL_FNS:
-        raise ValueError(f"no K3 device function for family {family_id}")
+    _check(x, torch.float32, (d, n), "x", dev)
+    _check(counts, torch.int32, (n,), "counts", dev)
+    _check(coef, torch.float32, (d, 4), "coef", dev)
+    _check_weighting(consts, seed, family_id, dev)
     y = torch.empty_like(x)
     logw = torch.empty(n, dtype=torch.float32, device=dev)
     err = _build.lib().cssm_resample_propagate(

@@ -1,4 +1,5 @@
-"""K1: systematic resampling counts in one kernel call.
+"""K1: systematic resampling counts in one kernel call; K7a / K7b: the
+prefix sum and the int32 running max.
 
 Replaces ``composablestatespacemodels_tpu/ops/scan_kernel.py``'s
 ``systematic_counts_cols`` (:550) -- and by value its flat form
@@ -9,12 +10,18 @@ n))`` with ``counts[-1] = n``, as flat int32 ``[N]``.
 On the H100 the kernel is memory-bound: one 4 MiB read of the weights and
 one 4 MiB write of the counts at N = 2^20.  The TPU kernel walks its grid
 in order with the prefix and running-max carries in SMEM; the CUDA kernel
-is a three-pass parallel scan instead (see the source).  ``total`` and
+is a three-pass parallel scan instead (``csrc/scan.cuh``).  ``total`` and
 ``u`` stay on the device, so a filter step never waits for the host.
 
-:func:`systematic_counts_fused` launches the kernel for CUDA tensors and
-raises for any device it cannot serve; for CPU tensors (the tests) it
-computes :func:`systematic_counts_fused_ref`, the plain PyTorch version.
+K7a (:func:`prefix_sum`, replacing ``prefix_sum`` :613) and K7b
+(:func:`cummax_int32`, replacing ``cummax_int32`` :480) are the same tile
+scan without the counts (``csrc/scan.cu``): every prefix of the port has
+one implementation (``scan_kernel.py:617-620`` of the JAX package), and
+``inference/resampling.py::_cumsum_ref`` replays its summation order.
+
+Each wrapper launches its kernel for CUDA tensors and raises for any device
+it cannot serve; for CPU tensors (the tests) it computes its ``*_ref``
+plain PyTorch version.  Each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -24,13 +31,13 @@ import torch
 from ..inference import resampling as rs
 from . import _build
 
-_TILE = 4096  # elements per CUDA block (csrc/counts.cu: kTile)
+_TILE = rs._TILE  # elements per CUDA block (csrc/scan.cuh: kTile)
 
 
 def systematic_counts_fused_ref(w: torch.Tensor, total: torch.Tensor,
                                 u: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K1, the same function as the kernel."""
-    return rs._counts_from_cdf(rs._cumsum(w / total), u, w.shape[0])
+    return rs._counts_from_cdf(rs._cumsum_ref(w / total), u, w.shape[0])
 
 
 def _check_scalar(t: torch.Tensor, name: str, device) -> None:
@@ -39,17 +46,23 @@ def _check_scalar(t: torch.Tensor, name: str, device) -> None:
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _check_flat(x: torch.Tensor, dtype, name: str, kernel: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for device {x.device}")
+    if x.dtype != dtype or x.ndim != 1 or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} [N] tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if x.shape[0] == 0:
+        raise ValueError(f"{name} is empty")
+
+
 def systematic_counts_fused(w: torch.Tensor, total: torch.Tensor,
                             u: torch.Tensor) -> torch.Tensor:
     """Monotone systematic counts ``int32 [N]`` from weights ``w [N]``,
     ``total = w.sum()`` and the uniform draw ``u`` (device scalars)."""
     if w.device.type == "cpu":
         return systematic_counts_fused_ref(w, total, u)
-    if w.device.type != "cuda":
-        raise ValueError(f"no K1 kernel for device {w.device}")
-    if w.dtype != torch.float32 or w.ndim != 1 or not w.is_contiguous():
-        raise ValueError("w must be a contiguous float32 [N] tensor, got "
-                         f"{w.dtype} {tuple(w.shape)}")
+    _check_flat(w, torch.float32, "w", "K1")
     _check_scalar(total, "total", w.device)
     _check_scalar(u, "u", w.device)
     n = w.shape[0]
@@ -70,3 +83,52 @@ def systematic_counts_fused(w: torch.Tensor, total: torch.Tensor,
 
 
 systematic_counts_fused.launches = 0
+
+
+def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7a, in the kernel's summation order."""
+    return rs._cumsum_ref(x)
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of float32 ``x [N]``: float64 accumulation,
+    each entry rounded to float32."""
+    if x.device.type == "cpu":
+        return prefix_sum_ref(x)
+    _check_flat(x, torch.float32, "x", "K7a")
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    bsum = torch.empty(-(-n // _TILE), dtype=torch.float64, device=x.device)
+    err = _build.lib().cssm_prefix_sum(
+        x.data_ptr(), out.data_ptr(), bsum.data_ptr(), n, x.device.index,
+        _build.cuda_stream(x.device))
+    _build.check(err, "cssm_prefix_sum")
+    prefix_sum.launches += 1
+    return out
+
+
+prefix_sum.launches = 0
+
+
+def cummax_int32_ref(c: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7b."""
+    return torch.cummax(c, dim=0).values
+
+
+def cummax_int32(c: torch.Tensor) -> torch.Tensor:
+    """Exact inclusive running max of int32 ``c [N]``."""
+    if c.device.type == "cpu":
+        return cummax_int32_ref(c)
+    _check_flat(c, torch.int32, "c", "K7b")
+    n = c.shape[0]
+    out = torch.empty_like(c)
+    bmax = torch.empty(-(-n // _TILE), dtype=torch.int32, device=c.device)
+    err = _build.lib().cssm_cummax_int32(
+        c.data_ptr(), out.data_ptr(), bmax.data_ptr(), n, c.device.index,
+        _build.cuda_stream(c.device))
+    _build.check(err, "cssm_cummax_int32")
+    cummax_int32.launches += 1
+    return out
+
+
+cummax_int32.launches = 0

@@ -102,10 +102,12 @@ def test_initial_state(init):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"store": "summary"}, {"store": "path"}, {"resample": "systematic"},
-    {"resample": "systematic-pallas-fused"}, {"ess_threshold": 0.5},
+    {"resample": "systematic"}, {"resample": "stratified"},
+    {"resample": "multinomial"}, {"resample": "residual"},
+    {"resample": "identity"},
 ])
 def test_unported_options_raise(kwargs):
+    """The generic [N, d] schemes are still to port."""
     _, _, tm, tp = both("oracle")
     series = to_torch_series(np.arange(4.0), np.ones(4), np.ones(4, bool))
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
