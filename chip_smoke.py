@@ -13,8 +13,18 @@ N = 2^20, T = 1000: ``log_likelihood(..., resample="systematic-fused")``
 K4, K5), each with its launch counters set to 0 just before and read just
 after.  Checks the filters against the Kalman oracle, stratified
 (K7a, K7b, K4) included, and times each kernel against its plain version.
-Every check raises on failure.  Prints one line per phase, then a JSON
-line of per-kernel results, and last ``{"ok": true, "device": {...}}``.
+Then PMMH (slice 3): K1 and K4 at the single chain's N = 100, K6 batched
+and K8 against their plain versions bit for bit (K8 also on the inputs
+each fused tier hands it at T = 400), K8 against the Kalman oracle and
+against ``log_likelihood``, and
+the five PMMH tiers of the JAX bench on the flagship at N = 100, T = 400
+(``pmmh`` with ``make_pf_loglik`` -- K1, K4 --, with ``fused_sweep=True``
+-- K8 --, at N = 512, and ``pmmh_chains`` over 256 chains on the chain
+axis -- K6 batched -- and with ``pf_ll_chains`` -- K8), each rate the best
+of 3 beside the card's name and power limit, launch counters read around
+the timed runs.  Every check raises on failure.  Prints one line per
+phase, then a JSON line of per-kernel results, and last ``{"ok": true,
+"device": {...}}``.
 Needs one CUDA device; without one it exits non-zero and prints no result.
 """
 
@@ -31,6 +41,11 @@ N_MAIN = 2 ** 20
 T_MAIN = 1000
 N_ORACLE = 2 ** 18
 T_ORACLE = 200
+# PMMH at the JAX bench's shapes (bench.py:250-460); iterations per timed
+# run cut from its 500 / 200 / 300 / 100 / 100
+N_PMMH, T_PMMH, CHAINS = 100, 400, 256
+PMMH_ITERS = {"single": 40, "chains": 20, "fused": 300,
+              "chains_fused": 100, "fused_n512": 100}
 
 
 def _device_line() -> str:
@@ -286,9 +301,11 @@ def phase_timing(counts_in, prop_in):
 def _counters():
     from composablestatespacemodels_torch.ops import resample_kernel as rk
     from composablestatespacemodels_torch.ops import scan_kernel as sk
+    from composablestatespacemodels_torch.ops import sweep_kernel as swk
     return {"K1": sk.systematic_counts_fused, "K2": rk.resample_propagate,
             "K4": rk.sorted_gather_resample_t, "K5": rk.propagate_weights_t,
-            "K7a": sk.prefix_sum, "K7b": sk.cummax_int32}
+            "K7a": sk.prefix_sum, "K7b": sk.cummax_int32,
+            "K6b": sk.systematic_counts_batched, "K8": swk.pf_sweep_chains}
 
 
 def _reset_counters():
@@ -475,7 +492,8 @@ def phase_summary(dev, device_line: str, runs: int = 2):
         launches = _read_counters()
         fused = route.endswith("fused")
         want = {"K1": runs * n_obs, "K2": 0, "K4": runs * n_obs,
-                "K5": runs * T_MAIN if fused else 0, "K7a": 0, "K7b": 0}
+                "K5": runs * T_MAIN if fused else 0, "K7a": 0, "K7b": 0,
+                "K6b": 0, "K8": 0}
         if launches != want:
             raise AssertionError(f"{route}: launches {launches}, expected "
                                  f"{want}")
@@ -527,10 +545,11 @@ def phase_oracle_summary(dev, runs: int = 8):
         launches[route] = _read_counters()
         if route == "stratified-pallas":
             want = {"K1": 0, "K2": 0, "K4": runs * n_obs, "K5": 0,
-                    "K7a": runs * n_obs, "K7b": runs * n_obs}
+                    "K7a": runs * n_obs, "K7b": runs * n_obs, "K6b": 0,
+                    "K8": 0}
         else:
             want = {"K1": runs * n_obs, "K2": 0, "K4": runs * n_obs,
-                    "K5": 0, "K7a": 0, "K7b": 0}
+                    "K5": 0, "K7a": 0, "K7b": 0, "K6b": 0, "K8": 0}
         if launches[route] != want:
             raise AssertionError(f"{route}: launches {launches[route]}, "
                                  f"expected {want}")
@@ -649,6 +668,336 @@ def phase_timing_new(gather_in, prop_in, scan_in):
     return times
 
 
+def phase_counts_batched(gen, dev):
+    """[16] K6 batched against its plain version and against K1 row by
+    row, bit for bit, in four weight regimes."""
+    import torch
+
+    from composablestatespacemodels_torch.ops.scan_kernel import (
+        systematic_counts_batched, systematic_counts_batched_ref,
+        systematic_counts_fused)
+
+    keep = None
+    for b, n in ((CHAINS, N_PMMH), (4, 2 ** 17)):
+        for regime in ("uniform", "mild", "heavy", "degenerate"):
+            w = torch.stack([_weights(regime, n, gen, dev) for _ in range(b)])
+            total = w.sum(dim=-1)
+            u = torch.rand(b, generator=gen, device=dev)
+            ck = systematic_counts_batched(w, total, u)
+            cp = systematic_counts_batched_ref(w, total, u)
+            rows = torch.stack([systematic_counts_fused(
+                w[i], total[i].clone(), u[i].clone()) for i in range(b)])
+            torch.cuda.synchronize()
+            for name, other in (("plain", cp), ("K1 row by row", rows)):
+                if not torch.equal(ck, other):
+                    raise AssertionError(
+                        f"K6 batched {regime} [{b}, {n}]: "
+                        f"{int((ck != other).sum())} counts differ from "
+                        f"{name}")
+            if regime == "mild" and b == CHAINS:
+                keep = (w, total, u)
+    print(f"[16] K6 batched counts vs plain and vs K1 row by row at [B, N] = "
+          f"[{CHAINS}, {N_PMMH}] and [4, {2 ** 17}]: bit-equal in the "
+          "uniform, mild, heavy and degenerate regimes", flush=True)
+    return 0, keep
+
+
+def _sweep_case(gen, dev, n, d, b, t_len, family):
+    """K8 inputs: random clouds and coefficients, a masked step, the
+    family's constants per (step, chain)."""
+    import torch
+
+    from composablestatespacemodels_torch.models.observation import (
+        Gaussian, Poisson)
+
+    x0 = torch.randn((b, d, n), generator=gen, device=dev)
+    coef = torch.stack([
+        0.9 + 0.1 * torch.rand((t_len, b, d), generator=gen, device=dev),
+        0.1 * torch.randn((t_len, b, d), generator=gen, device=dev),
+        0.3 * torch.rand((t_len, b, d), generator=gen, device=dev)],
+        dim=-1).contiguous()
+    design = (0.5 * torch.randn((t_len, d), generator=gen,
+                                device=dev)).contiguous()
+    fam = Poisson() if family == "poisson" else Gaussian()
+    make_consts, fid = fam.kernel_log_density()
+    if family == "poisson":
+        y = torch.poisson(torch.full((t_len, 1), 2.0, device=dev),
+                          generator=gen)
+    else:
+        y = torch.randn((t_len, 1), generator=gen, device=dev)
+    scale = 0.5 + torch.rand(b, generator=gen, device=dev)
+    wconsts = make_consts(y, scale).contiguous()
+    mask = torch.ones(t_len, dtype=torch.int32, device=dev)
+    mask[t_len // 3] = 0
+    seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
+    return (x0, coef, design, wconsts, mask, seed, fid)
+
+
+def phase_sweep(gen, dev):
+    """[17] K8 against its plain version, ll and x_final bit for bit, each
+    case with a masked step; then the seed's streams."""
+    import torch
+
+    from composablestatespacemodels_torch.ops.sweep_kernel import (
+        pf_sweep_chains, pf_sweep_chains_ref)
+
+    lines = []
+    for n, d, b, t_len, fam in ((N_PMMH, 7, CHAINS, 100, "poisson"),
+                                (512, 7, 16, 60, "gaussian"),
+                                (1024, 1, 8, 60, "gaussian")):
+        args = _sweep_case(gen, dev, n, d, b, t_len, fam)
+        llk, xk = pf_sweep_chains(*args)
+        llp, xp = pf_sweep_chains_ref(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(llk, llp) and torch.equal(xk, xp)):
+            raise AssertionError(
+                f"K8 (n, d, B) = ({n}, {d}, {b}) {fam}: max |ll - plain| "
+                f"{float((llk - llp).abs().max())}, max |x - plain| "
+                f"{float((xk - xp).abs().max())}")
+        if not bool(torch.isfinite(llk).all()):
+            raise AssertionError(f"K8 ({n}, {d}, {b}): ll not finite")
+        lines.append(f"({n}, {d}, {b}) {fam} T={t_len}")
+    # determinism and streams: the same seed, another seed, identical chains
+    x0, coef, design, wconsts, mask, seed, fid = _sweep_case(
+        gen, dev, N_PMMH, 7, 8, 50, "poisson")
+    x0, coef, wconsts = (t[:, :1].expand_as(t).contiguous() if t is not x0
+                         else t[:1].expand_as(t).contiguous()
+                         for t in (x0, coef, wconsts))
+    a, _ = pf_sweep_chains(x0, coef, design, wconsts, mask, seed, fid)
+    a2, _ = pf_sweep_chains(x0, coef, design, wconsts, mask, seed, fid)
+    c, _ = pf_sweep_chains(x0, coef, design, wconsts, mask, seed + 1, fid)
+    torch.cuda.synchronize()
+    distinct = len(set(a.tolist()))
+    if not torch.equal(a, a2) or torch.equal(a, c) or distinct <= 4:
+        raise AssertionError(f"K8 streams: same seed equal "
+                             f"{torch.equal(a, a2)}, other seed equal "
+                             f"{torch.equal(a, c)}, "
+                             f"{distinct} distinct lls of 8 identical chains")
+    print(f"[17] K8 vs plain, (n, d, B): {'; '.join(lines)}, one masked step "
+          "each: ll and x_final bit-equal; the same seed repeats its bits, "
+          f"another differs, 8 identical chains give {distinct} distinct lls",
+          flush=True)
+    return 0
+
+
+def phase_sweep_path(dev):
+    """[17b] K8 against its plain version, ll and x_final bit for bit, on
+    the inputs the PMMH tiers hand it: the flagship at T = 400 with
+    perturb(0.05) parameters, for one chain at N = 100 and N = 512 and for
+    256 chains at N = 100 (``make_pf_loglik_chains(...).sweep_inputs``)."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.models import perturb
+    from composablestatespacemodels_torch.models.params import params_to
+    from composablestatespacemodels_torch.models.tree import tree_map
+    from composablestatespacemodels_torch.ops.sweep_kernel import (
+        pf_sweep_chains, pf_sweep_chains_ref)
+
+    model, params = flagship()
+    params = params_to(params, dev)
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_PMMH, dt=1.0).to_timeseries()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    lines = []
+    for n, b in ((N_PMMH, 1), (512, 1), (N_PMMH, CHAINS)):
+        params_b = perturb(0.05)(gen, tree_map(
+            lambda t: t.expand((b,) + t.shape).contiguous(), params))
+        args = ct.make_pf_loglik_chains(model, data, n).sweep_inputs(
+            gen, params_b)
+        llk, xk = pf_sweep_chains(*args)
+        llp, xp = pf_sweep_chains_ref(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(llk, llp) and torch.equal(xk, xp)):
+            raise AssertionError(
+                f"K8 on the PMMH path's inputs (n, B) = ({n}, {b}), "
+                f"T={T_PMMH}: max |ll - plain| "
+                f"{float((llk - llp).abs().max())}, max |x - plain| "
+                f"{float((xk - xp).abs().max())}")
+        if not bool(torch.isfinite(llk).all()):
+            raise AssertionError(f"K8 path inputs ({n}, {b}): ll not finite")
+        lines.append(f"(N, B) = ({n}, {b})")
+    print(f"[17b] K8 vs plain on the PMMH tiers' own inputs (flagship d=7, "
+          f"T={T_PMMH}, {int(data.mask.sum())} observed, perturb(0.05)): "
+          f"{'; '.join(lines)}: ll and x_final bit-equal", flush=True)
+
+
+def phase_sweep_stats(dev):
+    """[18] K8 against the Kalman oracle (linear-Gaussian, T = 120) and
+    against the port's log_likelihood on the flagship (N = 100, T = 100):
+    the gates of tests_tpu/test_sweep_chip.py."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.models.tree import tree_map
+
+    def chains(params, b):
+        return tree_map(lambda t: t.expand((b,) + t.shape).contiguous(),
+                        params)
+
+    model = ct.linear(ct.brownian_motion(1))
+    params = ct.parameters(math.log(0.5), ct.brownian_params(0.0, 1.0, 0.4))
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(21),
+                               120).to_timeseries()
+    kf = float(ct.kalman_filter(model, params, data).ll)
+    lines = []
+    for n, b in ((128, 64), (256, 32), (512, 16)):
+        lls = ct.make_pf_loglik_chains(model, data, n)(
+            torch.Generator(device=dev).manual_seed(n), chains(params, b))
+        mean = float(lls.mean())
+        se = float(lls.std()) / math.sqrt(b)
+        if not abs(mean - kf) < max(4 * se, 0.5):
+            raise AssertionError(f"K8 N={n} B={b}: mean ll {mean} vs Kalman "
+                                 f"{kf} (se {se})")
+        lines.append(f"N={n} B={b}: {mean:.4f} (se {se:.4f})")
+    model, params = flagship()
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(22),
+                               100, dt=1.0).to_timeseries()
+    k8 = ct.make_pf_loglik_chains(model, data, N_PMMH)(
+        torch.Generator(device=dev).manual_seed(23), chains(params, 64))
+    ref = torch.stack([ct.log_likelihood(
+        model, params, data, N_PMMH,
+        torch.Generator(device=dev).manual_seed(300 + r)) for r in range(8)])
+    diff = float(k8.mean() - ref.mean())
+    joint = math.hypot(float(k8.std()) / 8.0, float(ref.std()) / math.sqrt(8))
+    if not abs(diff) < max(4 * joint, 1.0):
+        raise AssertionError(f"K8 flagship: mean ll {float(k8.mean())} vs "
+                             f"log_likelihood {float(ref.mean())} (joint sd "
+                             f"{joint})")
+    print(f"[18] K8 vs Kalman ({kf:.4f}) on linear(brownian(1)) T=120: "
+          f"{'; '.join(lines)}; flagship N={N_PMMH} T=100: K8 (64 chains) "
+          f"{float(k8.mean()):.4f} vs log_likelihood (8 runs) "
+          f"{float(ref.mean()):.4f}, difference {diff:.4f} (joint sd "
+          f"{joint:.4f})", flush=True)
+
+
+def phase_pmmh(dev, device_line: str):
+    """[19] the five PMMH tiers of the JAX bench on the flagship, N = 100,
+    T = 400, perturb(0.05): best of 3 timed runs each, launch counters set
+    to 0 just before the timed runs and read just after."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.models import perturb
+
+    model, params = flagship()
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_PMMH, dt=1.0).to_timeseries()
+    n_obs = int(data.mask.sum())
+    prop = perturb(0.05)
+    pf = ct.make_pf_loglik(model, data, N_PMMH)
+    pf_fused = ct.make_pf_loglik(model, data, N_PMMH, fused_sweep=True)
+    pf_chains = ct.make_pf_loglik_chains(model, data, N_PMMH)
+    pf_512 = ct.make_pf_loglik(model, data, 512, fused_sweep=True)
+    it = PMMH_ITERS
+    tiers = {
+        "single": (lambda g, k: ct.pmmh(g, params, pf, prop, k), 1,
+                   {"K1": n_obs, "K4": n_obs}),
+        "fused": (lambda g, k: ct.pmmh(g, params, pf_fused, prop, k), 1,
+                  {"K8": 1}),
+        "chains": (lambda g, k: ct.pmmh_chains(g, params, pf, prop, k,
+                                               CHAINS), CHAINS,
+                   {"K6b": n_obs}),
+        "chains_fused": (lambda g, k: ct.pmmh_chains(
+            g, params, None, prop, k, CHAINS, pf_ll_chains=pf_chains),
+            CHAINS, {"K8": 1}),
+        "fused_n512": (lambda g, k: ct.pmmh(g, params, pf_512, prop, k), 1,
+                       {"K8": 1}),
+    }
+    rates, launches = {}, {}
+    for name, (run, chains, per_iter) in tiers.items():
+        run(torch.Generator(device=dev).manual_seed(1), 2)   # warm-up
+        torch.cuda.synchronize()
+        _reset_counters()
+        best, results = math.inf, []
+        for r in range(3):
+            g = torch.Generator(device=dev).manual_seed(10 + r)
+            t0 = time.perf_counter()
+            res = run(g, it[name])
+            float(res.lls.sum())
+            best = min(best, time.perf_counter() - t0)
+            results.append(res)
+        got = _read_counters()
+        want = {k: 0 for k in got}
+        want.update({k: 3 * it[name] * v for k, v in per_iter.items()})
+        if got != want:
+            raise AssertionError(f"PMMH {name}: launches {got}, expected "
+                                 f"{want}")
+        for res in results:
+            rate = res.acceptance_rate()
+            if not bool(torch.isfinite(res.lls).all()):
+                raise AssertionError(f"PMMH {name}: an ll is not finite")
+            if not (0.0 < float(rate.mean()) < 1.0):
+                raise AssertionError(f"PMMH {name}: acceptance rate "
+                                     f"{rate.tolist()} outside (0, 1)")
+        rates[name] = chains * it[name] / best
+        launches[name] = {k: v for k, v in got.items() if v}
+        print(f"[19] PMMH {name}: {rates[name]:.1f} "
+              f"{'aggregate chain-' if chains > 1 else ''}iters/s "
+              f"(best of 3 runs of {it[name]} iterations"
+              f"{f' x {chains} chains' if chains > 1 else ''}, "
+              f"{best:.3f} s; acceptance "
+              f"{float(results[0].acceptance_rate().mean()):.3f}); launches "
+              f"{launches[name]}; {device_line}", flush=True)
+    # approx: the fused single chain evaluates the current parameters too
+    _reset_counters()
+    res = ct.pmmh(torch.Generator(device=dev).manual_seed(5), params,
+                  pf_fused, prop, 10, approx=True)
+    float(res.lls.sum())
+    if _read_counters()["K8"] != 20 or not bool(torch.isfinite(res.lls).all()):
+        raise AssertionError(f"PMMH approx: K8 launched "
+                             f"{_read_counters()['K8']} times for 10 "
+                             "iterations, expected 20")
+    print(f"[19] PMMH approx (fused, 10 iterations): K8 launched 20 times; "
+          f"N={N_PMMH} T={T_PMMH} ({n_obs} observations), iterations per "
+          f"timed run {it} (the JAX bench: 500 / 200 / 300 / 100 / 100)",
+          flush=True)
+    return rates, launches
+
+
+def phase_timing_pmmh(counts_in):
+    """[20] K6 batched and K8 alone against their plain versions at the
+    PMMH shapes: [256, 100] counts; 256 chains x N = 100, d = 7, T = 400."""
+    import torch
+
+    from composablestatespacemodels_torch.ops.scan_kernel import (
+        systematic_counts_batched, systematic_counts_batched_ref)
+    from composablestatespacemodels_torch.ops.sweep_kernel import (
+        pf_sweep_chains, pf_sweep_chains_ref)
+
+    dev = counts_in[0].device
+    gen = torch.Generator(device=dev).manual_seed(77)
+    sweep_in = _sweep_case(gen, dev, N_PMMH, 7, CHAINS, T_PMMH, "poisson")
+    llk, xk = pf_sweep_chains(*sweep_in)
+    llp, xp = pf_sweep_chains_ref(*sweep_in)
+    torch.cuda.synchronize()
+    if not (torch.equal(llk, llp) and torch.equal(xk, xp)):
+        raise AssertionError(
+            f"K8 {CHAINS} chains x N={N_PMMH}, T={T_PMMH}: max |ll - plain| "
+            f"{float((llk - llp).abs().max())}, max |x - plain| "
+            f"{float((xk - xp).abs().max())}")
+    times = {}
+    for name, kern, ref, args, k_it, p_it in (
+            ("K6b", systematic_counts_batched, systematic_counts_batched_ref,
+             counts_in, 100, 10),
+            ("K8", pf_sweep_chains, pf_sweep_chains_ref, sweep_in, 5, 1)):
+        p1 = _cuda_ms(lambda: ref(*args), p_it)
+        k1 = _cuda_ms(lambda: kern(*args), k_it)
+        k2 = _cuda_ms(lambda: kern(*args), k_it)
+        p2 = _cuda_ms(lambda: ref(*args), p_it)
+        times[name] = (min(k1, k2), min(p1, p2))
+    print(f"[20] kernel alone vs plain: K6 batched [{CHAINS}, {N_PMMH}] "
+          f"{times['K6b'][0]:.4f} ms vs {times['K6b'][1]:.4f} ms; K8 "
+          f"{CHAINS} chains x N={N_PMMH}, d=7, T={T_PMMH} "
+          f"{times['K8'][0]:.4f} ms vs {times['K8'][1]:.4f} ms (ll and "
+          "x_final bit-equal on these inputs)", flush=True)
+    return times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -685,6 +1034,15 @@ def main() -> int:
     phase_selection(gen, dev, N_MAIN)
     phase_ess_sync(dev)
     times.update(phase_timing_new(gather_in, prop5_in, scan_in))
+    # K1 and K4 at the single PMMH tier's shapes, [N_PMMH] and [7, N_PMMH]
+    k1_err = max(k1_err, phase_counts(gen, dev, N_PMMH)[0])
+    k4_err = max(k4_err, phase_gather(gen, dev, N_PMMH)[0])
+    k6b_err, counts_b_in = phase_counts_batched(gen, dev)
+    k8_err = phase_sweep(gen, dev)
+    phase_sweep_path(dev)
+    phase_sweep_stats(dev)
+    _, pmmh_launches = phase_pmmh(dev, device_line)
+    times.update(phase_timing_pmmh(counts_b_in))
 
     src = "composablestatespacemodels_torch/csrc/"
     tpu = "composablestatespacemodels_tpu/ops/"
@@ -719,6 +1077,18 @@ def main() -> int:
          "replaces": tpu + "scan_kernel.py:480",
          "launches": strat_launches["K7b"], "max_abs_err": k7_err,
          "ms": times["K7b"][0], "plain_ms": times["K7b"][1]},
+        {"name": "K6 batched systematic_counts_batched", "route": "cuda",
+         "source": src + "counts.cu",
+         "replaces": tpu + "scan_kernel.py:302",
+         "launches": pmmh_launches["chains"]["K6b"], "max_abs_err": k6b_err,
+         "ms": times["K6b"][0], "plain_ms": times["K6b"][1]},
+        {"name": "K8+K3 pf_sweep_chains (Poisson/Gaussian log-density)",
+         "route": "cuda", "source": src + "sweep.cu",
+         "replaces": tpu + "sweep_kernel.py:358",
+         "launches": sum(pmmh_launches[k]["K8"] for k in
+                         ("fused", "chains_fused", "fused_n512")),
+         "max_abs_err": k8_err,
+         "ms": times["K8"][0], "plain_ms": times["K8"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

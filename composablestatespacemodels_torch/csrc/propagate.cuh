@@ -1,5 +1,6 @@
 // The exact affine-Gaussian step of one particle column, shared by K2
-// (resample_propagate.cu) and K5 (propagate_weights.cu):
+// (resample_propagate.cu) and K5 (propagate_weights.cu); K8 (sweep.cu) uses
+// its rounding, affine_step, on a cloud in shared memory:
 //
 //   y[r, j] = a_r * x[r, src] + b_r + s_r * z_{r,j}        (z ~ N(0, 1))
 //   gamma_j = sum_r design_r * y[r, j]                     (weighted only)
@@ -15,6 +16,13 @@
 #include "philox.cuh"
 
 namespace cssm {
+
+// a * x + b + s * z with every operation rounded on its own (no FMA), in
+// the plain version's order: (a * x + b) + s * z.
+__device__ __forceinline__ float affine_step(float a, float x, float b,
+                                             float s, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), b), __fmul_rn(s, z));
+}
 
 template <int NCOL>
 __device__ __forceinline__ float propagate_column(
@@ -34,10 +42,8 @@ __device__ __forceinline__ float propagate_column(
       const int r = r0 + k;
       if (r < d) {
         const float* cr = coef + NCOL * r;
-        const float v = __fadd_rn(
-            __fadd_rn(__fmul_rn(__ldg(cr), __ldg(x + r * n + src)),
-                      __ldg(cr + 1)),
-            __fmul_rn(__ldg(cr + 2), z[k]));
+        const float v = affine_step(__ldg(cr), __ldg(x + r * n + src),
+                                    __ldg(cr + 1), __ldg(cr + 2), z[k]);
         y[r * n + j] = v;
         if constexpr (NCOL == 4) {
           const float g = __fmul_rn(__ldg(cr + 3), v);

@@ -27,6 +27,10 @@ namespace cssm {
 
 struct Identity {
   const float* x;
+  int64_t n;
+  __device__ __forceinline__ Identity row(int r) const {
+    return {x + (int64_t)r * n, n};
+  }
   __device__ __forceinline__ float operator()(int64_t i) const {
     return __ldg(x + i);
   }
@@ -37,7 +41,7 @@ __global__ void __launch_bounds__(kThreads)
                 float* __restrict__ out, int64_t n) {
   __shared__ double dsm[kWarps];
   float p[kItems];
-  tile_prefix(load, bsum, n, p, dsm);
+  tile_prefix(load, bsum, n, blockIdx.x, p, dsm);
   const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kItems;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
@@ -55,7 +59,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 0; k < kItems; ++k) {
     c[k] = base + k < n ? __ldg(x + base + k) : INT_MIN;
   }
-  tile_cummax_store(c, out, bmax, n, ism);
+  tile_cummax_store(c, out, bmax, n, blockIdx.x, ism);
 }
 
 }  // namespace cssm
@@ -67,7 +71,7 @@ extern "C" int cssm_prefix_sum(const void* x, void* out, void* bsum,
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((n + kTile - 1) / kTile);
   cudaStream_t s = (cudaStream_t)stream;
-  const Identity load{(const float*)x};
+  const Identity load{(const float*)x, n};
   tile_sums<<<blocks, kThreads, 0, s>>>(load, (double*)bsum, n);
   prefix_scan<<<blocks, kThreads, 0, s>>>(load, (const double*)bsum,
                                           (float*)out, n);

@@ -1,5 +1,6 @@
-// The one tile scan behind every prefix producer of the port: K1 (counts.cu)
-// and K7a / K7b (scan.cu).
+// The one tile scan behind every prefix producer of the port: K1 and K6
+// batched (counts.cu), K7a / K7b (scan.cu) and the per-step prefix of K8
+// (sweep.cu).
 //
 // The JAX package keeps one prefix implementation for every count producer
 // (ops/scan_kernel.py:617-620), because a float32 prefix moves by ulps with
@@ -18,6 +19,12 @@
 // fixed tree, no atomics), which the plain PyTorch version
 // (inference/resampling.py::_cumsum_ref) replays: kernel and plain version
 // agree bit for bit.
+//
+// A scan may run over several independent rows at once (K6 batched: one row
+// per chain): the grid is (tiles, rows), blockIdx.y is the row, and a Load
+// functor's row(r) binds it to row r.  The device functions take the tile
+// index and the row's pointers from their caller, so K8 runs one tile of a
+// row inside its own block.
 #pragma once
 #include <climits>
 #include <stdint.h>
@@ -58,6 +65,25 @@ __device__ __forceinline__ int block_max(int v, int* smem) {
   }
   __syncthreads();
   const int m = smem[0];
+  __syncthreads();
+  return m;
+}
+
+// The maximum over the block (fmaxf: a NaN loses to a number).
+__device__ __forceinline__ float block_max(float v, float* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(kFull, v, o));
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = smem[lane];
+    for (int o = 16; o > 0; o >>= 1) {
+      t = fmaxf(t, __shfl_down_sync(kFull, t, o));
+    }
+    if (lane == 0) smem[0] = t;
+  }
+  __syncthreads();
+  const float m = smem[0];
   __syncthreads();
   return m;
 }
@@ -114,31 +140,42 @@ __device__ __forceinline__ int block_exclusive_max(int v, int* smem) {
   return res;
 }
 
-// Pass 1: bsum[b] = float64 sum of tile b's values load(i).
+// This thread's float64 sum of its kItems values of tile `tile`, in order.
 template <class Load>
-__global__ void __launch_bounds__(kThreads)
-    tile_sums(Load load, double* __restrict__ bsum, int64_t n) {
-  __shared__ double smem[kWarps];
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kItems;
+__device__ __forceinline__ double thread_sum(Load load, int64_t n,
+                                             int64_t tile) {
+  const int64_t base = tile * kTile + threadIdx.x * kItems;
   double acc = 0.0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int64_t i = base + k;
     if (i < n) acc += (double)load(i);
   }
-  const double s = block_sum(acc, smem);
-  if (threadIdx.x == 0) bsum[blockIdx.x] = s;
+  return acc;
 }
 
-// Pass 2: this thread's kItems inclusive prefixes, accumulated in float64
-// (the sum of the earlier tiles, the tile's exclusive scan, then this
-// thread's items in order) and each rounded to float32.
+// Pass 1: bsum[row][b] = float64 sum of tile b's values of the row.
+template <class Load>
+__global__ void __launch_bounds__(kThreads)
+    tile_sums(Load rows, double* __restrict__ bsum, int64_t n) {
+  __shared__ double smem[kWarps];
+  const double s =
+      block_sum(thread_sum(rows.row(blockIdx.y), n, blockIdx.x), smem);
+  if (threadIdx.x == 0) {
+    bsum[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// Pass 2: this thread's kItems inclusive prefixes of tile `b` of one row,
+// accumulated in float64 (the sum of the earlier tiles' sums bsum[0..b), the
+// tile's exclusive scan, then this thread's items in order) and each rounded
+// to float32.
 template <class Load>
 __device__ __forceinline__ void tile_prefix(Load load,
                                             const double* __restrict__ bsum,
-                                            int64_t n, float (&out)[kItems],
+                                            int64_t n, int64_t b,
+                                            float (&out)[kItems],
                                             double* smem) {
-  const int b = blockIdx.x;
   double part = 0.0;
   for (int k = threadIdx.x; k < b; k += kThreads) part += bsum[k];
   const double offset = block_sum(part, smem);
@@ -159,13 +196,15 @@ __device__ __forceinline__ void tile_prefix(Load load,
   }
 }
 
-// Pass 2 of the running max: c[] (this thread's values) maxed across the
-// tile, stored to out[], and the tile maximum to bmax[b].
+// Pass 2 of the running max: c[] (this thread's values of tile b of one
+// row) maxed across the tile, stored to the row's out[], and the tile
+// maximum to bmax[b].
 __device__ __forceinline__ void tile_cummax_store(int (&c)[kItems],
                                                   int* __restrict__ out,
                                                   int* __restrict__ bmax,
-                                                  int64_t n, int* smem) {
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kItems;
+                                                  int64_t n, int64_t b,
+                                                  int* smem) {
+  const int64_t base = b * kTile + threadIdx.x * kItems;
   int run = INT_MIN;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
@@ -179,17 +218,21 @@ __device__ __forceinline__ void tile_cummax_store(int (&c)[kItems],
     const int64_t i = base + k;
     if (i < n) out[i] = max(c[k], ex);
   }
-  if (threadIdx.x == kThreads - 1) bmax[blockIdx.x] = max(run, ex);
+  if (threadIdx.x == kThreads - 1) bmax[b] = max(run, ex);
 }
 
-// Pass 3: tile b + 1 raises its values to the maximum of tiles 0..b.
-// Values within a tile are already nondecreasing, so one read of the
-// tile's first value tells whether anything changes.
+// Pass 3: tile b + 1 of row blockIdx.y raises its values to the maximum of
+// the row's tiles 0..b (grid: tiles - 1 by rows).  Values within a tile are
+// already nondecreasing, so one read of the tile's first value tells
+// whether anything changes.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     cummax_carry(T* __restrict__ out, const T* __restrict__ bmax, int64_t n) {
   __shared__ int ism[kWarps];
   __shared__ int need;
+  const int64_t row = blockIdx.y;
+  out += row * n;
+  bmax += row * (gridDim.x + 1);
   const int b = blockIdx.x + 1;
   T part = INT_MIN;
   for (int k = threadIdx.x; k < b; k += kThreads) part = max(part, bmax[k]);

@@ -13,6 +13,11 @@ string drives both packages:
   (``ll += max + log(total)``, ParticleFilter.scala:124-127), resamples --
   the systematic counts by K1, or the stratified counts through K7a/K7b,
   then the K4 gather -- and saves the step's summary, path or callable.
+* ``"systematic"`` with ``store`` ``"ll"``/None (the default of PMMH's
+  ``make_pf_loglik``): :func:`_filter_impl_t` with the systematic counts
+  (K1) and the K4 gather.  The JAX package bit-compares its ``[N, d]``
+  systematic scan against ``"systematic-pallas"`` (its ``filter.py:803-808``),
+  so one ``[d, N]`` route serves both names.
 * ``"systematic-pallas-fused"`` (alias ``"systematic-fused"``): with
   ``store`` ``"ll"``/None and no ESS trigger, :func:`_filter_impl_t_fused`,
   which folds each step's propagate and next weights into the resample
@@ -29,10 +34,15 @@ whether to resample depends on the step's ESS: one host read per observed
 step on that path only.  A missing observation propagates only and carries
 the weights (ParticleFilter.scala:120-121).
 
-The generic ``[N, d]`` path (the ``"systematic"``, ``"stratified"``,
-``"multinomial"``, ``"residual"`` and ``"identity"`` schemes, custom
-schemes, Euler-Maruyama models), the other observation families and
-forecasting are ROADMAP Queue 1 item 6.
+:func:`_filter_ll_chains` is the same systematic ll filter for B chains at
+once on a ``[B, d, N]`` cloud (``pmmh_chains`` and ``pilot_run``, where
+the JAX package ``vmap``s the filter): per-chain parameters, the counts of
+every chain in one K6 batched call, the row gather in torch.
+
+The generic ``[N, d]`` path (the ``"systematic"`` scheme with a store mode,
+the ``"stratified"``, ``"multinomial"``, ``"residual"`` and ``"identity"``
+schemes, custom schemes, Euler-Maruyama models), the other observation
+families and forecasting are ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -60,7 +70,8 @@ _COUNTS = {"systematic-pallas": "systematic",
 _GENERIC = ("systematic", "stratified", "multinomial", "residual",
             "identity")
 _LATER = ("is not ported yet (ROADMAP.md Queue 1 item 6); the PyTorch port "
-          f"runs resample in {sorted((*_COUNTS, *_FUSED))}")
+          f"runs resample in {sorted((*_COUNTS, *_FUSED))}, and 'systematic' "
+          "with store='ll'")
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +222,17 @@ def _step_seeds(generator: torch.Generator, n_steps: int) -> torch.Tensor:
     return torch.where(s >= 2 ** 31, s - 2 ** 32, s).to(torch.int32)
 
 
+def _weigh(logw: torch.Tensor, wn: torch.Tensor):
+    """Weigh the carried normalised weights ``wn`` by ``logw`` along the
+    last axis: the ll increment ``max + log(total)``
+    (ParticleFilter.scala:124-127) and the new normalised weights.  The one
+    weighing of every ``[d, N]`` route, one chain or B."""
+    maxw = torch.amax(logw, dim=-1, keepdim=True)
+    u = wn * torch.exp(logw - maxw)
+    total = torch.sum(u, dim=-1, keepdim=True)
+    return (maxw + torch.log(total)).squeeze(-1), u / total
+
+
 def _weights(model, params, x_t, t, y, mask):
     return model.log_density(params, model.f_t(x_t, t),
                              torch.where(mask, y, 0.0))
@@ -231,16 +253,17 @@ def _initial_cloud(model: Model, params: Tree, generator, n: int, x_init):
 def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
                    n_particles: int, generator: torch.Generator, t0, x_init,
                    store, ess_threshold, interval: float,
-                   fused_propagate: bool, counts_scheme: str) -> FilterResult:
+                   fused_propagate: bool, counts_scheme: str,
+                   observed: list) -> FilterResult:
     """Per step: propagate to the observation time (torch ops, or K5 with
     ``fused_propagate``), weight, update ll and ESS, resample through the
-    counts of ``counts_scheme`` and the K4 gather, save."""
+    counts of ``counts_scheme`` and the K4 gather, save.  ``observed`` is
+    the mask as a host list."""
     device = generator.device
     params = params_to(params, device)
     sp = model.sde_params(params)
     d, n = model.dim, n_particles
     ts, ys, mask = data.ts, data.ys, data.mask
-    observed = mask.tolist()  # host copy, read once
     n_steps = len(observed)
     save = _make_save_fn_t(model, store, interval, ess_threshold is not None,
                            generator, n_steps, n)
@@ -293,11 +316,8 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
         if observed[i]:
             if logw is None:
                 logw = model.obs.log_density(design[i] @ x1, y_safe[i], scale)
-            maxw = torch.max(logw)
-            u = wn * torch.exp(logw - maxw)
-            total = torch.sum(u)
-            ll = ll + (maxw + torch.log(total))
-            wn1 = u / total
+            inc, wn1 = _weigh(logw, wn)
+            ll = ll + inc
             ess = torch.floor(1.0 / torch.sum(wn1 * wn1)).to(torch.int32)
             # the one host read per step, and only under an ESS trigger
             resample = (ess_threshold is None
@@ -324,7 +344,7 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
 
 def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
                          n_particles: int, generator: torch.Generator,
-                         t0, x_init) -> FilterResult:
+                         t0, x_init, observed: list) -> FilterResult:
     """The carried cloud is already propagated to the step's time: weight
     it, build the systematic counts (K1), then resample, propagate to the
     next observation time and weight there in one kernel (K2 + K3).  The
@@ -336,7 +356,6 @@ def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
     sp = model.sde_params(params)
     d, n = model.dim, n_particles
     ts, ys, mask = data.ts, data.ys, data.mask
-    observed = mask.tolist()  # host copy, read once
     n_steps = len(observed)
 
     x = _initial_cloud(model, params, generator, n, x_init)
@@ -370,11 +389,8 @@ def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
     ll_hist, ess_hist = [], []
     for i in range(n_steps):
         if observed[i]:
-            maxw = torch.max(logw)
-            u = wn * torch.exp(logw - maxw)
-            total = torch.sum(u)
-            ll = ll + (maxw + torch.log(total))
-            wn1 = u / total
+            inc, wn1 = _weigh(logw, wn)
+            ll = ll + inc
             ess = torch.floor(1.0 / torch.sum(wn1 * wn1)).to(torch.int32)
             counts = systematic_counts_fused(wn1, torch.sum(wn1), uniforms[i])
             x, logw = resample_propagate(x, counts, coef[i], consts[i],
@@ -388,6 +404,62 @@ def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
         ll_hist.append(ll)
         ess_hist.append(ess)
     return FilterResult(ll, torch.stack(ll_hist), torch.stack(ess_hist), x.T)
+
+
+def _ll_step_chains(model: Model, x, wn, coef_i, design_i, y_i, scale,
+                    observed: bool, z, u):
+    """One step of the systematic ll filter for B chains, with its draws
+    fed: ``x [B, d, N]`` the clouds, ``wn`` the carried normalised weights
+    (``[N]`` or ``[B, N]``), ``coef_i [B, d, 3]``, ``design_i [d]``,
+    ``y_i`` the observation, ``scale [B]``, ``z [B, d, N]`` the normals and
+    ``u [B]`` the resampling uniforms.  Returns ``(x, wn, ll increment
+    [B])``; a missing observation propagates only, carries the weights and
+    gives the increment None.  Row b computes what :func:`_filter_impl_t`
+    computes for one chain."""
+    x1 = coef_i[..., 0:1] * x + coef_i[..., 1:2] + coef_i[..., 2:3] * z
+    if not observed:
+        return x1, wn / torch.sum(wn, dim=-1, keepdim=True), None
+    n = x.shape[-1]
+    inc, wn1 = _weigh(
+        model.obs.log_density(design_i @ x1, y_i, scale[:, None]), wn)
+    anc = rs._ancestors_from_counts(rs.systematic_counts(wn1, u), n)
+    x = torch.gather(x1, 2, anc[:, None, :].long().expand_as(x1))
+    return x, torch.full((n,), 1.0 / n, dtype=x.dtype, device=x.device), inc
+
+
+def _filter_ll_chains(model: Model, params_b: Tree, data: TimeSeries,
+                      n_particles: int, generator: torch.Generator,
+                      observed: list):
+    """The ``resample="systematic"``, ``store="ll"`` filter for B chains at
+    once: ``params_b`` carries a leading chain axis on every tensor.  The
+    counts of all chains come from one K6 batched call per step; no step
+    reads the device from the host (``observed`` is the mask as a host
+    list).  Returns ``(ll [B], final clouds [B, d, N])``.  It draws as
+    :func:`_filter_impl_t` does, chain axis first, so with B = 1 it
+    repeats that filter's ll from the same generator state."""
+    device = generator.device
+    params_b = params_to(params_b, device)
+    sp = model.sde_params(params_b)
+    ts, ys, mask = data.ts, data.ys, data.mask
+    x = model.initial_state_t(params_b, generator, n_particles)  # [B, d, N]
+    b, d, n = x.shape
+    dt = ts - torch.cat([ts[:1], ts[:-1]])
+    a, bb, q = model.sde.transition_coeffs(sp, dt[:, None])       # [T, B, d]
+    coef = torch.stack([a, bb, torch.sqrt(q)], dim=-1)
+    design = model.design_vector(ts)
+    y_safe = torch.where(mask, ys, 0.0)
+    scale = model.obs_scale(params_b)
+    uniforms = torch.rand((len(observed), b), generator=generator,
+                          device=device)
+    wn = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+    ll = torch.zeros(b, dtype=torch.float32, device=device)
+    for i, obs in enumerate(observed):
+        z = torch.randn((b, d, n), generator=generator, device=device)
+        x, wn, inc = _ll_step_chains(model, x, wn, coef[i], design[i],
+                                     y_safe[i], scale, obs, z, uniforms[i])
+        if inc is not None:
+            ll = ll + inc
+    return ll, x
 
 
 def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
@@ -412,7 +484,8 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
       resample: ``"systematic-pallas"``, ``"stratified-pallas"`` or
         ``"systematic-pallas-fused"`` (alias ``"systematic-fused"``, the
         propagate with in-kernel noise: statistically, not bitwise,
-        equivalent to the others).
+        equivalent to the others); ``"systematic"`` (the same route as
+        ``"systematic-pallas"``) with ``store`` ``"ll"`` or None.
       t0: start time (default: the first observation time).
       initial_state: optional fixed initial state ``[d]`` or cloud ``[N, d]``.
       store: ``"summary"`` (per-step :class:`PfSummary`), ``"path"`` (one
@@ -424,25 +497,42 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
         carried weights).  Costs one host read per observed step.
       interval: credible-interval level of the summaries.
     """
+    _check_scheme(resample, store)
+    if data.ts.device != generator.device:
+        raise ValueError(f"data on {data.ts.device} but generator on "
+                         f"{generator.device}")
+    model.validate_params(params)
+    return _run(model, params, data, n_particles, generator, resample, t0,
+                initial_state, store, ess_threshold, interval,
+                data.mask.tolist())  # the mask on the host, read once
+
+
+def _check_scheme(resample, store) -> None:
+    if not (store in ("ll", "summary", "path", None) or callable(store)):
+        raise ValueError(f"unknown store mode {store!r}")
+    if resample == "systematic" and store in ("ll", None):
+        return
     if resample in _GENERIC or callable(resample):
         raise NotImplementedError(f"resample={resample!r} {_LATER}")
     if resample not in _FUSED and resample not in _COUNTS:
         raise ValueError(f"unknown resampling scheme {resample!r}; choose "
                          f"from {sorted((*_COUNTS, *_FUSED, *_GENERIC))}")
-    if not (store in ("ll", "summary", "path", None) or callable(store)):
-        raise ValueError(f"unknown store mode {store!r}")
-    if data.ts.device != generator.device:
-        raise ValueError(f"data on {data.ts.device} but generator on "
-                         f"{generator.device}")
-    model.validate_params(params)
+
+
+def _run(model, params, data, n_particles, generator, resample, t0,
+         initial_state, store, ess_threshold, interval,
+         observed: list) -> FilterResult:
+    """The route of ``resample`` and ``store`` (checked), with the mask as
+    the host list ``observed``."""
     if (resample in _FUSED and store in ("ll", None) and ess_threshold is None
             and model.obs.kernel_log_density() is not None):
         return _filter_impl_t_fused(model, params, data, n_particles,
-                                    generator, t0, initial_state)
+                                    generator, t0, initial_state, observed)
     return _filter_impl_t(model, params, data, n_particles, generator, t0,
                           initial_state, store, ess_threshold, interval,
                           fused_propagate=resample in _FUSED,
-                          counts_scheme=_COUNTS.get(resample, "systematic"))
+                          counts_scheme=_COUNTS.get(resample, "systematic"),
+                          observed=observed)
 
 
 def log_likelihood(model: Model, params: Tree, data: TimeSeries,

@@ -54,43 +54,68 @@ def _shift_right(v: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], dim=-1)
 
 
-def _cumsum_ref(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum of float ``x [N]``: float64 accumulation in the
-    association order of the kernels (``csrc/scan.cuh``), each entry
-    rounded to float32.  The plain version of K7a and of K1's prefix."""
-    n = x.shape[0]
-    tiles = -(-n // _TILE)
-    v = torch.zeros(tiles * _TILE, dtype=torch.float64, device=x.device)
-    v[:n] = x.to(torch.float64)
-    v = v.view(tiles, _THREADS, _ITEMS)
+def _thread_sums(v: torch.Tensor) -> torch.Tensor:
+    """``scan.cuh::thread_sum`` over the last axis of float64 ``v [...,
+    tiles * 4096]``: each thread's 4 items summed in order; returns
+    ``[..., tiles, 1024]``."""
+    v = v.unflatten(-1, (-1, _THREADS, _ITEMS))
     tsum = v[..., 0]
     for k in range(1, _ITEMS):
-        tsum = tsum + v[..., k]                           # [tiles, 1024]
-    bsum = _block_sum(tsum)                               # pass 1, [tiles]
+        tsum = tsum + v[..., k]
+    return tsum
+
+
+def _tile_sums(v: torch.Tensor) -> torch.Tensor:
+    """``scan.cuh::tile_sums``: the block's tree over each tile's thread
+    sums; ``[..., tiles]``."""
+    return _block_sum(_thread_sums(v))
+
+
+def _tile_pad(x: torch.Tensor) -> torch.Tensor:
+    """``x [..., N]`` in float64, zero-padded to whole tiles."""
+    n = x.shape[-1]
+    v = torch.zeros(x.shape[:-1] + (-(-n // _TILE) * _TILE,),
+                    dtype=torch.float64, device=x.device)
+    v[..., :n] = x.to(torch.float64)
+    return v
+
+
+def _cumsum_ref(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of float ``x [..., N]`` along the last axis:
+    float64 accumulation in the association order of the kernels
+    (``csrc/scan.cuh``), each entry rounded to float32.  The plain version
+    of K7a and of the prefix of K1, K6 batched and K8; every row is
+    scanned on its own."""
+    n = x.shape[-1]
+    v = _tile_pad(x)
+    tiles = v.shape[-1] // _TILE
+    tsum = _thread_sums(v)                                # [..., tiles, 1024]
+    bsum = _block_sum(tsum)                           # pass 1, [..., tiles]
+    v = v.unflatten(-1, (tiles, _THREADS, _ITEMS))
     # the sum of the tiles before tile b: thread k adds tiles k, k + 1024,
     # ... below b in turn, then the block sums the threads' parts
     rounds = -(-tiles // _THREADS)
-    padded = torch.zeros(rounds * _THREADS, dtype=torch.float64,
-                         device=x.device)
-    padded[:tiles] = bsum
-    padded = padded.view(rounds, _THREADS)
+    padded = torch.zeros(bsum.shape[:-1] + (rounds * _THREADS,),
+                         dtype=torch.float64, device=x.device)
+    padded[..., :tiles] = bsum
+    padded = padded.unflatten(-1, (rounds, _THREADS))[..., None, :, :]
     below = (torch.arange(rounds * _THREADS, device=x.device).view(
         rounds, _THREADS)[None] < torch.arange(
             tiles, device=x.device)[:, None, None])       # [tiles, rounds, T]
-    part = torch.where(below[:, 0], padded[0], 0.0)
+    part = torch.where(below[:, 0], padded[..., 0, :], 0.0)
     for r in range(1, rounds):
-        part = part + torch.where(below[:, r], padded[r], 0.0)
-    offset = _block_sum(part)                             # [tiles]
+        part = part + torch.where(below[:, r], padded[..., r, :], 0.0)
+    offset = _block_sum(part)                             # [..., tiles]
     # the tile's exclusive scan of the threads' sums
-    incl = _warp_inclusive(tsum.view(tiles, 32, 32))
-    warp_ex = _shift_right(_warp_inclusive(incl[..., 31]))   # [tiles, 32]
-    res = warp_ex[..., None] + _shift_right(incl)            # [tiles, 32, 32]
-    p = offset[:, None] + res.view(tiles, _THREADS)
+    incl = _warp_inclusive(tsum.unflatten(-1, (32, 32)))
+    warp_ex = _shift_right(_warp_inclusive(incl[..., 31]))  # [..., tiles, 32]
+    res = warp_ex[..., None] + _shift_right(incl)       # [..., tiles, 32, 32]
+    p = offset[..., None] + res.flatten(-2)
     out = torch.empty_like(v)
     for k in range(_ITEMS):
         p = p + v[..., k]
         out[..., k] = p
-    return out.view(-1)[:n].to(torch.float32)
+    return out.flatten(-3)[..., :n].to(torch.float32)
 
 
 def _check_device(x: torch.Tensor) -> None:
@@ -122,27 +147,36 @@ def _monotone_counts(counts: torch.Tensor) -> torch.Tensor:
 
 
 def _counts_from_cdf(cdf: torch.Tensor, u, n: int) -> torch.Tensor:
-    """``cummax(clip(ceil(n*cdf - u), 0, n))`` with ``counts[-1] = n``.
+    """``cummax(clip(ceil(n*cdf - u), 0, n))`` with ``counts[-1] = n``,
+    along the last axis (``u`` broadcasts against ``cdf``).
 
     ``n*cdf`` and ``- u`` are two separately rounded float32 operations
     (the kernel uses ``__fmul_rn`` / ``__fsub_rn``; a fused multiply-add
     would move a count at ties).  The running max is exact in int32.
     """
     c = torch.clamp(torch.ceil(n * cdf - u), 0, n).to(torch.int32)
-    c[-1] = n  # guard against cdf[-1] < 1 rounding
-    return torch.cummax(c, dim=0).values
+    c[..., -1] = n  # guard against cdf[-1] < 1 rounding
+    return torch.cummax(c, dim=-1).values
 
 
 def systematic_counts(weights: torch.Tensor, u, n: int | None = None):
     """Monotone cumulative position counts for systematic resampling,
     from weights and the uniform draw ``u`` (0-d tensor or float).  K1
-    for CUDA float32 ``[N]`` weights.  Reference semantics:
+    for CUDA float32 ``[N]`` weights.  For ``[B, N]`` weights (B chains)
+    ``u`` is ``[B]``, ``n`` is N and the counts are ``[B, N]``: K6
+    batched (its plain version on the CPU).  Reference semantics:
     Resampling.scala:63-72."""
-    m = weights.shape[0]
+    m = weights.shape[-1]
     n = m if n is None else n
     _check_device(weights)
+    if weights.ndim == 2:
+        if n != m:
+            raise ValueError(f"[B, N] weights give N = {m} counts per row, "
+                             f"got n={n}")
+        from ..ops.scan_kernel import systematic_counts_batched
+        return systematic_counts_batched(weights, weights.sum(dim=-1), u)
     if (weights.device.type == "cuda" and weights.dtype == torch.float32
-            and weights.ndim == 1 and n == m):
+            and n == m):
         from ..ops.scan_kernel import systematic_counts_fused
         u = torch.as_tensor(u, dtype=torch.float32, device=weights.device)
         return systematic_counts_fused(weights, weights.sum(), u)
@@ -180,15 +214,19 @@ def stratified_counts(weights: torch.Tensor, u: torch.Tensor,
 
 
 def _ancestors_from_counts(counts: torch.Tensor, n_out: int) -> torch.Tensor:
-    """Ancestor indices from nondecreasing counts (``counts[-1] == n_out``):
-    scatter particle ``i`` to slot ``counts[i-1]`` for every particle with
-    offspring, then forward-fill with a running max."""
-    m = counts.shape[0]
-    offspring = torch.diff(counts, prepend=counts.new_zeros(1))
+    """Ancestor indices from nondecreasing counts (``counts[-1] == n_out``)
+    along the last axis: scatter particle ``i`` to slot ``counts[i-1]`` for
+    every particle with offspring, then forward-fill with a running max.
+    Rows of ``[B, N]`` counts (chains) are independent."""
+    m = counts.shape[-1]
+    lead = counts.shape[:-1]
+    offspring = torch.diff(counts, prepend=counts.new_zeros(lead + (1,)))
     starts = counts - offspring
     targets = torch.where(offspring > 0, starts,
                           torch.full_like(starts, n_out)).long()
-    seed = torch.zeros(n_out + 1, dtype=torch.int32, device=counts.device)
-    seed.scatter_reduce_(0, targets, torch.arange(
-        m, dtype=torch.int32, device=counts.device), reduce="amax")
-    return torch.cummax(seed[:n_out], dim=0).values
+    seed = torch.zeros(lead + (n_out + 1,), dtype=torch.int32,
+                       device=counts.device)
+    seed.scatter_reduce_(-1, targets, torch.arange(
+        m, dtype=torch.int32, device=counts.device).expand(targets.shape),
+        reduce="amax")
+    return torch.cummax(seed[..., :n_out], dim=-1).values

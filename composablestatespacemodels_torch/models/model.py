@@ -98,11 +98,13 @@ class Model:
     # -- observation layer (leftmost leaf) ------------------------------------------
 
     def obs_scale(self, params: Tree):
-        """Constrained observation scale of the leftmost component (or 1.0)."""
+        """Constrained observation scale of the leftmost component (or ones),
+        ``[B]`` for chain-batched parameters."""
         node = self._leftmost_node(params)
         if not self.obs.needs_scale:
-            device = node.sde.m0.device
-            return torch.tensor(1.0, dtype=torch.float32, device=device)
+            m0 = node.sde.m0
+            return torch.ones(m0.shape[:-1], dtype=torch.float32,
+                              device=m0.device)
         if node.scale is None:
             raise ValueError(
                 f"{type(self.obs).__name__} requires an observation scale "

@@ -9,8 +9,10 @@ ROADMAP Queue 1 item 6.
 ``kernel_log_density()`` returns ``(make_consts, family_id)``:
 
 * ``make_consts(y, scale)`` is torch, runs outside the kernel and returns
-  the per-step constants ``[..., k]`` (k <= 8; ``y`` may be ``[T]``, so
-  the filter builds every step's constants in one pass);
+  the per-step constants ``[..., k]`` (k <= 8) over the broadcast shape of
+  ``y`` and ``scale``: ``y [T]`` builds every step's constants in one pass,
+  and ``y[:, None]`` against a chain-batched ``scale [B]`` gives ``[T, B,
+  k]``, the layout of K8;
 * ``family_id`` selects the matching ``__device__`` function in
   ``csrc/obs_density.cuh`` inside the fused resample kernel (K3), and the
   torch twin :func:`kernel_fn` in the kernel's plain version.  Both
@@ -113,6 +115,8 @@ class Poisson(ObservationFamily):
     def kernel_log_density(self):
         def make_consts(y, scale):
             y = torch.as_tensor(y, dtype=torch.float32)
+            y = y.expand(torch.broadcast_shapes(y.shape, torch.as_tensor(
+                scale).shape))
             return torch.stack([y, torch.lgamma(y + 1.0)], dim=-1)
 
         return make_consts, POISSON_ID

@@ -11,7 +11,10 @@ filter (ROADMAP Queue 1 item 6).
 
 ``dt`` may be a 0-d tensor or a ``[T]`` tensor; with ``[T]`` the
 coefficients come out ``[T, dim]``, which is how the filter computes all
-per-step transitions in one batched pass.  Noise comes from an explicit
+per-step transitions in one batched pass.  Parameters may carry a leading
+chain axis (record fields ``[B, k]``, PMMH's chains): the moments are then
+``[B, dim]``, the initial cloud ``[B, dim, N]``, and ``dt[:, None]`` (``[T,
+1]``) gives coefficients ``[T, B, dim]``.  Noise comes from an explicit
 ``torch.Generator`` on the state's device.
 """
 
@@ -74,15 +77,18 @@ class Sde:
     # -- transposed [dim, N] layout (the filter's cloud) -----------------------
 
     def initial_state_t(self, p, generator: torch.Generator, n: int):
+        """The initial cloud ``[dim, N]`` (``[B, dim, N]`` for chains)."""
         m0, c0 = self.initial_moments(p)
-        z = torch.randn((self.dim, n), generator=generator, device=m0.device)
-        return m0[:, None] + torch.sqrt(c0)[:, None] * z
+        z = torch.randn(m0.shape + (n,), generator=generator,
+                        device=m0.device)
+        return m0[..., None] + torch.sqrt(c0)[..., None] * z
 
     def step_t(self, p, generator: torch.Generator, x_t, dt):
         """Exact transition on a ``[dim, N]`` particle block (scalar dt)."""
         a, b, q = self.transition_coeffs(p, dt)
         z = torch.randn(x_t.shape, generator=generator, device=x_t.device)
-        return a[:, None] * x_t + b[:, None] + torch.sqrt(q)[:, None] * z
+        return (a[..., None] * x_t + b[..., None]
+                + torch.sqrt(q)[..., None] * z)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,7 +194,7 @@ class CompositeSde(Sde):
     def initial_moments(self, p):
         ml, cl = self.left.initial_moments(p[0])
         mr, cr = self.right.initial_moments(p[1])
-        return torch.cat([ml, mr]), torch.cat([cl, cr])
+        return torch.cat([ml, mr], dim=-1), torch.cat([cl, cr], dim=-1)
 
 
 def brownian_motion(dim: int) -> Brownian:

@@ -35,6 +35,8 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "cssm_systematic_counts": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,
                                ctypes.c_int, _P],
+    "cssm_systematic_counts_batched": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                                       ctypes.c_int64, ctypes.c_int, _P],
     "cssm_resample_propagate": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                 _P],
@@ -45,6 +47,10 @@ _SIGNATURES = {
     "cssm_propagate_weights": [_P, _P, _P, _P, _P, _P, ctypes.c_int,
                                ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                _P],
+    "cssm_pf_sweep_chains": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                             ctypes.c_int, _P],
 }
 
 _lock = threading.Lock()

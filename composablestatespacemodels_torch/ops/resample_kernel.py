@@ -89,18 +89,23 @@ def _box_muller(a: torch.Tensor, b: torch.Tensor):
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
-def philox_normals(seed: torch.Tensor, d: int, n: int) -> torch.Tensor:
-    """The kernel's normals ``z [d, n]``: column j, rows 4k..4k+3 come from
-    Philox counter (j, k, 0, 0) under key (seed, 0)."""
+def philox_normals(seed: torch.Tensor, d: int, n: int, c2=0,
+                   c3=0) -> torch.Tensor:
+    """The kernels' normals ``z [..., d, n]``: column j, rows 4k..4k+3
+    come from Philox counter (j, k, c2, c3) under key (seed, 0).  K2 and
+    K5 use c2 = c3 = 0; K8 puts the step in c2 and the chain in c3, which
+    may be int64 tensors broadcasting to the leading axes."""
     j = torch.arange(n, dtype=torch.int64, device=seed.device)
-    zero = torch.zeros_like(j)
+    c2 = torch.as_tensor(c2, dtype=torch.int64, device=seed.device)[..., None]
+    c3 = torch.as_tensor(c3, dtype=torch.int64, device=seed.device)[..., None]
+    j, c2, c3 = torch.broadcast_tensors(j, c2, c3)
     k0 = seed.reshape(()).to(torch.int64) & _MASK32
     rows = []
     for k in range((d + 3) // 4):
-        w0, w1, w2, w3 = philox4x32_10((j, torch.full_like(j, k), zero, zero),
+        w0, w1, w2, w3 = philox4x32_10((j, torch.full_like(j, k), c2, c3),
                                        (k0, 0))
         rows += [*_box_muller(w0, w1), *_box_muller(w2, w3)]
-    return torch.stack(rows[:d])
+    return torch.stack(rows[:d], dim=-2)
 
 
 def _check(t: torch.Tensor, dtype, shape, name: str, dev) -> None:

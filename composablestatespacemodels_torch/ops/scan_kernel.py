@@ -1,5 +1,6 @@
-"""K1: systematic resampling counts in one kernel call; K7a / K7b: the
-prefix sum and the int32 running max.
+"""K1: systematic resampling counts in one kernel call; K6 batched: the
+same counts for B chains in one call; K7a / K7b: the prefix sum and the
+int32 running max.
 
 Replaces ``composablestatespacemodels_tpu/ops/scan_kernel.py``'s
 ``systematic_counts_cols`` (:550) -- and by value its flat form
@@ -12,6 +13,11 @@ one 4 MiB write of the counts at N = 2^20.  The TPU kernel walks its grid
 in order with the prefix and running-max carries in SMEM; the CUDA kernel
 is a three-pass parallel scan instead (``csrc/scan.cuh``).  ``total`` and
 ``u`` stay on the device, so a filter step never waits for the host.
+
+K6 batched (:func:`systematic_counts_batched`, replacing the batched form
+``_counts_packed_call`` :302 that ``pmmh_chains`` reaches under ``vmap``)
+is K1 with the chain axis in the grid (``csrc/counts.cu``): row b of its
+``[B, N]`` counts equals K1 on row b bit for bit.
 
 K7a (:func:`prefix_sum`, replacing ``prefix_sum`` :613) and K7b
 (:func:`cummax_int32`, replacing ``cummax_int32`` :480) are the same tile
@@ -83,6 +89,51 @@ def systematic_counts_fused(w: torch.Tensor, total: torch.Tensor,
 
 
 systematic_counts_fused.launches = 0
+
+
+def systematic_counts_batched_ref(w: torch.Tensor, total: torch.Tensor,
+                                  u: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K6 batched: K1's plain version on every
+    row."""
+    return rs._counts_from_cdf(rs._cumsum_ref(w / total[:, None]),
+                               u[:, None], w.shape[-1])
+
+
+def systematic_counts_batched(w: torch.Tensor, total: torch.Tensor,
+                              u: torch.Tensor) -> torch.Tensor:
+    """Monotone systematic counts ``int32 [B, N]`` for B chains: row b from
+    ``w[b]``, ``total[b] = w[b].sum()`` and the uniform ``u[b]``."""
+    if w.device.type == "cpu":
+        return systematic_counts_batched_ref(w, total, u)
+    if w.device.type != "cuda":
+        raise ValueError(f"no K6 batched kernel for device {w.device}")
+    if w.dtype != torch.float32 or w.ndim != 2 or not w.is_contiguous():
+        raise ValueError("w must be a contiguous float32 [B, N] tensor, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    b, n = w.shape
+    if not 0 < n < 2 ** 24 or not 0 < b < 2 ** 16:
+        raise ValueError(f"[B, N] = [{b}, {n}] outside B in (0, 2^16) (the "
+                         "grid's second axis), N in (0, 2^24) (counts exact "
+                         "in float32)")
+    for t, name in ((total, "total"), (u, "u")):
+        if (t.device != w.device or t.dtype != torch.float32
+                or tuple(t.shape) != (b,) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 [{b}] "
+                             f"tensor on {w.device}")
+    tiles = -(-n // _TILE)
+    counts = torch.empty((b, n), dtype=torch.int32, device=w.device)
+    bsum = torch.empty((b, tiles), dtype=torch.float64, device=w.device)
+    bmax = torch.empty((b, tiles), dtype=torch.int32, device=w.device)
+    err = _build.lib().cssm_systematic_counts_batched(
+        w.data_ptr(), total.data_ptr(), u.data_ptr(), counts.data_ptr(),
+        bsum.data_ptr(), bmax.data_ptr(), b, n, w.device.index,
+        _build.cuda_stream(w.device))
+    _build.check(err, "cssm_systematic_counts_batched")
+    systematic_counts_batched.launches += 1
+    return counts
+
+
+systematic_counts_batched.launches = 0
 
 
 def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
