@@ -22,9 +22,17 @@ the five PMMH tiers of the JAX bench on the flagship at N = 100, T = 400
 -- K8 --, at N = 512, and ``pmmh_chains`` over 256 chains on the chain
 axis -- K6 batched -- and with ``pf_ll_chains`` -- K8), each rate the best
 of 3 beside the card's name and power limit, launch counters read around
-the timed runs.  Every check raises on failure.  Prints one line per
-phase, then a JSON line of per-kernel results, and last ``{"ok": true,
-"device": {...}}``.
+the timed runs.  Then the observation families and schemes: the
+K3 device function of each of the seven pointwise families inside K2, K5
+and K8 against its torch twin, bit for bit; each family leftmost in the
+flagship's shape at full width through the fused ``log_likelihood`` and
+the fused summary filter, against the generic ``"systematic"`` route; the
+``"systematic"``, ``"stratified"``, ``"multinomial"`` and ``"residual"``
+schemes against Kalman; ``forecast_times``; fused PMMH for the negative
+binomial; and one PyTorch call per kernel function where one exists.
+Every check raises on failure.  Prints one line per phase, then a JSON
+line of per-kernel results (with each kernel's bound from this run's
+shapes), and last ``{"ok": true, "device": {...}}``.
 Needs one CUDA device; without one it exits non-zero and prints no result.
 """
 
@@ -46,6 +54,47 @@ T_ORACLE = 200
 N_PMMH, T_PMMH, CHAINS = 100, 400, 256
 PMMH_ITERS = {"single": 40, "chains": 20, "fused": 300,
               "chains_fused": 100, "fused_n512": 100}
+# the seven pointwise observation families (K3): observations for the
+# constants of K2 and K5 (both branches of ZIP and Bernoulli) and the
+# constrained scale
+K3_CASES = {"Gaussian": ((0.7,), 0.4), "Poisson": ((3.0,), 1.0),
+            "ZeroInflatedPoisson": ((0.0, 3.0), 0.3),
+            "NegativeBinomial": ((5.0,), 3.0), "Bernoulli": ((0.0, 1.0), 1.0),
+            "StudentsT": ((1.2,), 0.4), "Beta": ((0.3,), 2.0)}
+# largest float32 ulp distance allowed between a K3 device function and its
+# torch twin on the card (0: bit-equal)
+K3_ULPS = {name: 0 for name in K3_CASES}
+# runs per route of the full-width families' statistical gate, at N = 2^18
+FAMILY_RUNS, N_FAMILY_GATE = 10, 2 ** 18
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside
+# the tensor cores; bound_ms is the larger of bytes and operations over them
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# operations counted per Philox4x32-10 + Box-Muller normal (10 rounds of two
+# 32-bit multiplies and four xors for four normals, then a log, a sqrt and a
+# sine or cosine) and per K3 log-density
+OPS_NORMAL, OPS_K3 = 40, 20
+
+
+def _family(name: str):
+    from composablestatespacemodels_torch.models import observation
+    return getattr(observation, name)()
+
+
+def _bound(bytes_moved: float, ops: float):
+    """``(bound_ms, bound_by)``: the least time the card could take."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in float32 ulps between ``a`` and ``b`` (0 for
+    bit-equal tensors; NaN and infinities count by their bits)."""
+    import torch
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    ma = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    mb = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ma - mb).abs().max())
 
 
 def _device_line() -> str:
@@ -703,12 +752,11 @@ def phase_counts_batched(gen, dev):
 
 
 def _sweep_case(gen, dev, n, d, b, t_len, family):
-    """K8 inputs: random clouds and coefficients, a masked step, the
-    family's constants per (step, chain)."""
+    """K8 inputs: random clouds and coefficients, a masked step (its
+    observation 0, as the path's ``y_safe``), the family's constants per
+    (step, chain) from observations drawn from the family at gamma = 0.5
+    and scales around its ``K3_CASES`` scale."""
     import torch
-
-    from composablestatespacemodels_torch.models.observation import (
-        Gaussian, Poisson)
 
     x0 = torch.randn((b, d, n), generator=gen, device=dev)
     coef = torch.stack([
@@ -718,17 +766,16 @@ def _sweep_case(gen, dev, n, d, b, t_len, family):
         dim=-1).contiguous()
     design = (0.5 * torch.randn((t_len, d), generator=gen,
                                 device=dev)).contiguous()
-    fam = Poisson() if family == "poisson" else Gaussian()
+    fam = _family(family)
     make_consts, fid = fam.kernel_log_density()
-    if family == "poisson":
-        y = torch.poisson(torch.full((t_len, 1), 2.0, device=dev),
-                          generator=gen)
-    else:
-        y = torch.randn((t_len, 1), generator=gen, device=dev)
-    scale = 0.5 + torch.rand(b, generator=gen, device=dev)
-    wconsts = make_consts(y, scale).contiguous()
+    scale = K3_CASES[family][1] * (0.75 + 0.5 * torch.rand(
+        b, generator=gen, device=dev))
+    y = fam.sample(gen, torch.full((t_len, 1), 0.5, device=dev),
+                   scale[0])
     mask = torch.ones(t_len, dtype=torch.int32, device=dev)
     mask[t_len // 3] = 0
+    y[t_len // 3] = 0.0
+    wconsts = make_consts(y, scale).contiguous()
     seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
     return (x0, coef, design, wconsts, mask, seed, fid)
 
@@ -742,9 +789,9 @@ def phase_sweep(gen, dev):
         pf_sweep_chains, pf_sweep_chains_ref)
 
     lines = []
-    for n, d, b, t_len, fam in ((N_PMMH, 7, CHAINS, 100, "poisson"),
-                                (512, 7, 16, 60, "gaussian"),
-                                (1024, 1, 8, 60, "gaussian")):
+    for n, d, b, t_len, fam in ((N_PMMH, 7, CHAINS, 100, "Poisson"),
+                                (512, 7, 16, 60, "Gaussian"),
+                                (1024, 1, 8, 60, "Gaussian")):
         args = _sweep_case(gen, dev, n, d, b, t_len, fam)
         llk, xk = pf_sweep_chains(*args)
         llp, xp = pf_sweep_chains_ref(*args)
@@ -759,7 +806,7 @@ def phase_sweep(gen, dev):
         lines.append(f"({n}, {d}, {b}) {fam} T={t_len}")
     # determinism and streams: the same seed, another seed, identical chains
     x0, coef, design, wconsts, mask, seed, fid = _sweep_case(
-        gen, dev, N_PMMH, 7, 8, 50, "poisson")
+        gen, dev, N_PMMH, 7, 8, 50, "Poisson")
     x0, coef, wconsts = (t[:, :1].expand_as(t).contiguous() if t is not x0
                          else t[:1].expand_as(t).contiguous()
                          for t in (x0, coef, wconsts))
@@ -860,7 +907,8 @@ def phase_sweep_stats(dev):
         torch.Generator(device=dev).manual_seed(23), chains(params, 64))
     ref = torch.stack([ct.log_likelihood(
         model, params, data, N_PMMH,
-        torch.Generator(device=dev).manual_seed(300 + r)) for r in range(8)])
+        torch.Generator(device=dev).manual_seed(300 + r),
+        resample="systematic-fused") for r in range(8)])
     diff = float(k8.mean() - ref.mean())
     joint = math.hypot(float(k8.std()) / 8.0, float(ref.std()) / math.sqrt(8))
     if not abs(diff) < max(4 * joint, 1.0):
@@ -971,7 +1019,7 @@ def phase_timing_pmmh(counts_in):
 
     dev = counts_in[0].device
     gen = torch.Generator(device=dev).manual_seed(77)
-    sweep_in = _sweep_case(gen, dev, N_PMMH, 7, CHAINS, T_PMMH, "poisson")
+    sweep_in = _sweep_case(gen, dev, N_PMMH, 7, CHAINS, T_PMMH, "Poisson")
     llk, xk = pf_sweep_chains(*sweep_in)
     llp, xp = pf_sweep_chains_ref(*sweep_in)
     torch.cuda.synchronize()
@@ -995,6 +1043,386 @@ def phase_timing_pmmh(counts_in):
           f"{CHAINS} chains x N={N_PMMH}, d=7, T={T_PMMH} "
           f"{times['K8'][0]:.4f} ms vs {times['K8'][1]:.4f} ms (ll and "
           "x_final bit-equal on these inputs)", flush=True)
+    return times, sweep_in
+
+
+def phase_k3(gen, dev, counts, n: int = N_MAIN, d: int = 7):
+    """[21] the K3 device function of each pointwise family inside K2 and
+    K5 (d = 7, N = 2^20) and K8 ((N, B) = (100, 256), T = 400, a masked
+    step) against the torch twins, in float32 ulps, on constants from the
+    family's ``make_consts``; K2 and K5 timed per family."""
+    import torch
+
+    from composablestatespacemodels_torch.models.observation import (
+        KERNEL_CONSTS)
+    from composablestatespacemodels_torch.ops.resample_kernel import (
+        propagate_weights_t, propagate_weights_t_ref, resample_propagate,
+        resample_propagate_ref)
+    from composablestatespacemodels_torch.ops.sweep_kernel import (
+        pf_sweep_chains, pf_sweep_chains_ref)
+
+    x = torch.randn((d, n), generator=gen, device=dev) * 0.3
+    coef = torch.stack([
+        0.5 + 0.5 * torch.rand(d, generator=gen, device=dev),
+        0.1 * torch.randn(d, generator=gen, device=dev),
+        torch.full((d,), 0.3, device=dev),
+        0.5 + torch.rand(d, generator=gen, device=dev)], dim=1).contiguous()
+    seed = torch.tensor(24681357, dtype=torch.int32, device=dev)
+    out, bad = {}, []
+    for name, (ys, scale) in K3_CASES.items():
+        make_consts, fid = _family(name).kernel_log_density()
+        ulps = {"K2": 0, "K5": 0, "K8": 0}
+        err = {"K2": 0.0, "K5": 0.0, "K8": 0.0}
+        for y in ys:
+            consts = torch.zeros(KERNEL_CONSTS, device=dev)
+            c = make_consts(torch.tensor(y, device=dev),
+                            torch.tensor(scale, device=dev))
+            consts[:c.shape[-1]] = c
+            k2_in = (x, counts, coef, consts, seed, fid)
+            k5_in = (x, coef, consts, seed, fid)
+            for k, kern, ref, args in (
+                    ("K2", resample_propagate, resample_propagate_ref, k2_in),
+                    ("K5", propagate_weights_t, propagate_weights_t_ref,
+                     k5_in)):
+                yk, lk = kern(*args)
+                yp, lp = ref(*args)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(lk).all()):
+                    raise AssertionError(f"{k}+K3 {name} y={y}: a log-weight "
+                                         "is not finite")
+                ulps[k] = max(ulps[k], _ulps(yk, yp), _ulps(lk, lp))
+                err[k] = max(err[k], float((yk - yp).abs().max()),
+                             float((lk - lp).abs().max()))
+        sweep_in = _sweep_case(gen, dev, N_PMMH, d, CHAINS, T_PMMH, name)
+        llk, xk = pf_sweep_chains(*sweep_in)
+        llp, xp = pf_sweep_chains_ref(*sweep_in)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(llk).all()):
+            raise AssertionError(f"K8+K3 {name}: an ll is not finite (a "
+                                 "masked step leaked its constants)")
+        ulps["K8"] = max(_ulps(llk, llp), _ulps(xk, xp))
+        err["K8"] = max(float((llk - llp).abs().max()),
+                        float((xk - xp).abs().max()))
+        times = {"K2": _cuda_ms(lambda: resample_propagate(*k2_in), 100),
+                 "K5": _cuda_ms(lambda: propagate_weights_t(*k5_in), 100),
+                 "K5 plain": _cuda_ms(
+                     lambda: propagate_weights_t_ref(*k5_in), 3)}
+        out[name] = {"err": err, "ulps": ulps, **times}
+        if max(ulps.values()) > K3_ULPS[name]:
+            bad.append(name)
+    pois = out["Poisson"]
+    print(f"[21] K3 per family vs its torch twin (K2, K5 at d={d} N={n}; K8 "
+          f"at (N, B) = ({N_PMMH}, {CHAINS}), T={T_PMMH}, a masked step), "
+          "largest ulp gap and K2 / K5 alone [x Poisson]: " + "; ".join(
+              f"{k} ulps {v['ulps']} err {max(v['err'].values()):.3g}, K2 "
+              f"{v['K2']:.4f} ms "
+              f"[{v['K2'] / pois['K2']:.2f}], K5 {v['K5']:.4f} ms "
+              f"[{v['K5'] / pois['K5']:.2f}] (plain {v['K5 plain']:.3f})"
+              for k, v in out.items()), flush=True)
+    if bad:
+        raise AssertionError(f"K3 over its ulp tolerance {K3_ULPS} for {bad}")
+    return out
+
+
+def family_model(name: str):
+    """The flagship's shape with the family leftmost:
+    ``family(ou(1)) + seasonal(24, 3, ou(6))``, d = 7; the leftmost OU and
+    scale are the JAX package's end-to-end cases
+    (``tests/test_families_end_to_end.py``), Poisson's the flagship's."""
+    import composablestatespacemodels_torch as ct
+    leaf, scale, ou = {
+        "Gaussian": (ct.linear, math.log(0.5), (0.5, 0.2, 0.3, 0.5, 0.3)),
+        "Poisson": (ct.poisson, None, (1.0, 0.2, 0.3, 1.0, 0.3)),
+        "ZeroInflatedPoisson": (ct.zero_inflated_poisson, 0.0,
+                                (1.0, 0.3, 0.3, 1.0, 0.3)),
+        "NegativeBinomial": (ct.negative_binomial, math.log(3.0),
+                             (1.0, 0.3, 0.3, 1.0, 0.3)),
+        "Bernoulli": (ct.bernoulli, None, (0.0, 0.5, 0.3, 0.0, 0.5)),
+        "StudentsT": (ct.students_t, math.log(0.4), (1.0, 0.3, 0.3, 1.0, 0.4)),
+        "Beta": (ct.beta, math.log(2.0), (0.5, 0.2, 0.3, 0.5, 0.3)),
+    }[name]
+    model = leaf(ct.ou_process(1)) + ct.seasonal(24, 3, ct.ou_process(6))
+    params = ct.branch(
+        ct.leaf(ct.param_node(scale, ct.ou_params(*ou))),
+        ct.leaf(ct.param_node(None, ct.ou_params(0.2, 0.2, 0.25, 0.2, 0.2))))
+    return model, params
+
+
+def _check_support(name: str, ys) -> None:
+    """Simulated observations lie in the family's support."""
+    import torch
+    ok = bool(torch.isfinite(ys).all())
+    if name in ("Poisson", "ZeroInflatedPoisson", "NegativeBinomial"):
+        ok = ok and bool(((ys >= 0) & (ys == torch.round(ys))).all())
+    elif name == "Bernoulli":
+        ok = ok and bool(((ys == 0) | (ys == 1)).all())
+    elif name == "Beta":
+        ok = ok and bool(((ys > 0) & (ys < 1)).all())
+    if not ok:
+        raise AssertionError(f"{name}: simulated observations leave the "
+                             "family's support")
+
+
+def phase_families(dev, device_line: str):
+    """[22] each family leftmost in the flagship's shape at full width
+    (d = 7, N = 2^20, T = 1000): the fused ``log_likelihood`` (K1, K2+K3)
+    and the fused summary filter (K1, K4, K5+K3), launch counters set to 0
+    just before and read just after; then the fused ll against the generic
+    ``"systematic"`` route (torch log_density, K1, K4), FAMILY_RUNS runs each
+    at N = 2^18, within 4 joint standard errors."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    out, bad = {}, []
+    for name in K3_CASES:
+        model, params = family_model(name)
+        data = ct.simulate_regular(model, params, gen(0), T_MAIN,
+                                   dt=1.0).to_timeseries()
+        _check_support(name, data.ys)
+        n_obs = int(data.mask.sum())
+        torch.cuda.synchronize()
+        _reset_counters()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        ll = float(ct.log_likelihood(model, params, data, N_MAIN, gen(600),
+                                     resample="systematic-fused"))
+        ev[1].record()
+        res = ct.bootstrap_filter(model, params, data, N_MAIN, gen(601),
+                                  resample="systematic-pallas-fused",
+                                  store="summary")
+        ev[2].record()
+        torch.cuda.synchronize()
+        launches = _read_counters()
+        want = {k: 0 for k in launches}
+        want.update({"K1": 2 * n_obs, "K2": n_obs, "K4": n_obs,
+                     "K5": T_MAIN})
+        if launches != want:
+            bad.append(f"{name}: launches {launches}, expected {want}")
+        if not (math.isfinite(ll) and math.isfinite(float(res.ll))):
+            raise AssertionError(f"{name}: ll not finite ({ll}, "
+                                 f"{float(res.ll)})")
+        _check_summary(res, T_MAIN, model.dim, name)
+        lls = {route: [float(ct.log_likelihood(
+            model, params, data, N_FAMILY_GATE, gen(610 + r),
+            resample=route)) for r in range(FAMILY_RUNS)]
+            for route in ("systematic-fused", "systematic")}
+        mf, mg = (statistics.fmean(v) for v in lls.values())
+        joint = math.hypot(*(statistics.stdev(v) / math.sqrt(FAMILY_RUNS)
+                             for v in lls.values()))
+        ms_ll, ms_sum = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        print(f"[22] {name}(ou(1)) + seasonal(24, 3, ou(6)) d={model.dim} "
+              f"N={N_MAIN} T={T_MAIN}: fused ll {ll:.4f} "
+              f"({ms_ll / T_MAIN:.4f} ms/step), summary ll "
+              f"{float(res.ll):.4f} ({ms_sum / T_MAIN:.4f} ms/step); "
+              f"launches {launches}; at N={N_FAMILY_GATE}, {FAMILY_RUNS} runs "
+              f"each: fused {mf:.4f} vs systematic {mg:.4f}, "
+              f"{abs(mf - mg) / joint:.2f} joint se; {device_line}",
+              flush=True)
+        if not abs(mf - mg) <= 4 * joint:
+            bad.append(f"{name}: the fused ll disagrees with the systematic "
+                       "route by more than 4 joint se")
+        out[name] = launches
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def phase_schemes(dev, runs: int = 8):
+    """[23] the generic schemes on the Kalman oracle (T = 200, N = 2^18):
+    "systematic" with store="summary" (K1, K4), "stratified" (K7a, K7b,
+    K4), "multinomial" (K7a, K7b twice: the cdf and the counts, K4) and
+    "residual" (K7a, K7b twice, an index gather), launch counters per
+    scheme; each ll within 4 se of Kalman, and its ms/step.  "identity"
+    and a custom scheme once each.  Returns the systematic runs' final
+    clouds."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+
+    model = ct.linear(ct.brownian_motion(1))
+    params = ct.parameters(math.log(0.5), ct.brownian_params(0.0, 1.0, 0.4))
+    data = ct.simulate_regular(
+        model, params, torch.Generator(device=dev).manual_seed(7),
+        T_ORACLE).to_timeseries()
+    kf = ct.kalman_filter(model, params, data)
+    kf_ll = float(kf.ll)
+    n_obs = int(data.mask.sum())
+    clouds, lines, bad = [], [], []
+    for scheme, store, per_step in (
+            ("systematic", "summary", {"K1": 1, "K4": 1}),
+            ("stratified", "ll", {"K7a": 1, "K7b": 1, "K4": 1}),
+            ("multinomial", "ll", {"K7a": 1, "K7b": 2, "K4": 1}),
+            ("residual", "ll", {"K7a": 1, "K7b": 2})):
+        _reset_counters()
+        lls, secs = [], []
+        for r in range(runs):
+            t0 = time.perf_counter()
+            res = ct.bootstrap_filter(
+                model, params, data, N_ORACLE,
+                torch.Generator(device=dev).manual_seed(700 + r),
+                resample=scheme, store=store)
+            lls.append(float(res.ll))        # the host read ends the call
+            secs.append(time.perf_counter() - t0)
+            if store == "summary":
+                _check_summary(res, T_ORACLE, 1, scheme)
+                clouds.append(res.final_particles)
+        got = _read_counters()
+        want = {k: 0 for k in got}
+        want.update({k: runs * n_obs * v for k, v in per_step.items()})
+        if got != want:
+            bad.append(f"{scheme}: launches {got}, expected {want}")
+        mean = statistics.fmean(lls)
+        se = statistics.stdev(lls) / math.sqrt(runs)
+        lines.append(f"{scheme} {mean:.4f} (se {se:.4f}, "
+                     f"{abs(mean - kf_ll) / se:.2f} se; "
+                     f"{statistics.median(secs) * 1e3 / T_ORACLE:.4f} "
+                     "ms/step, host clock, median of the runs; launches "
+                     f"{ {k: v for k, v in got.items() if v} })")
+        if not abs(mean - kf_ll) <= 4 * se:
+            bad.append(f"{scheme} disagrees with the Kalman oracle by more "
+                       "than 4 standard errors")
+
+    def custom(g, w):   # a user's scheme: multinomial by torch.multinomial
+        return torch.multinomial(w, w.shape[0], replacement=True, generator=g)
+
+    for scheme in ("identity", custom):
+        ll = float(ct.log_likelihood(
+            model, params, data, N_ORACLE,
+            torch.Generator(device=dev).manual_seed(720), resample=scheme))
+        if not math.isfinite(ll):
+            raise AssertionError(f"{scheme}: ll not finite")
+        lines.append(f"{getattr(scheme, '__name__', scheme)} {ll:.4f}")
+    print(f"[23] generic schemes on the oracle T={T_ORACLE} N={N_ORACLE}, "
+          f"{runs} runs each, vs Kalman {kf_ll:.4f}: " + "; ".join(lines),
+          flush=True)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return clouds, kf
+
+
+def phase_forecast(dev, clouds, kf, steps: int = 10):
+    """[24] forecast_times from the oracle's final filtering clouds:
+    the state mean over the runs within 4 se of the exact predictive mean
+    (Brownian motion: the Kalman filtering mean at the last time); then 24
+    steps on the flagship from a full-width cloud: finite, ordered
+    bounds."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+
+    model = ct.linear(ct.brownian_motion(1))
+    params = ct.parameters(math.log(0.5), ct.brownian_params(0.0, 1.0, 0.4))
+    t_last = float(T_ORACLE - 1)
+    ts = t_last + torch.arange(1, steps + 1, dtype=torch.float32, device=dev)
+    means = torch.stack([ct.forecast_times(
+        model, params, c, t_last, ts,
+        torch.Generator(device=dev).manual_seed(800 + r)).state_mean[:, 0]
+        for r, c in enumerate(clouds)])                      # [runs, steps]
+    exact = float(kf.means[-1, 0])
+    se = means.std(dim=0) / math.sqrt(len(clouds))
+    gap = float(((means.mean(dim=0) - exact).abs() / se).max())
+    if not gap <= 4.0:
+        raise AssertionError(f"forecast state mean {means.mean(0).tolist()} "
+                             f"vs exact {exact}: {gap:.2f} se")
+    fmodel, fparams = flagship()
+    data = ct.simulate_regular(fmodel, fparams,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_MAIN, dt=1.0).to_timeseries()
+    res = ct.bootstrap_filter(fmodel, fparams, data, N_MAIN,
+                              torch.Generator(device=dev).manual_seed(810),
+                              resample="systematic-fused", store="ll")
+    t0 = time.perf_counter()
+    fc = ct.forecast_times(
+        fmodel, fparams, res.final_particles, data.ts[-1],
+        data.ts[-1] + torch.arange(1, 25, dtype=torch.float32, device=dev),
+        torch.Generator(device=dev).manual_seed(811))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for lo, mid, hi in (("obs_lower", "obs_mean", "obs_upper"),
+                        ("eta_lower", "eta_mean", "eta_upper"),
+                        ("state_lower", "state_mean", "state_upper")):
+        vals = [getattr(fc, k) for k in (lo, mid, hi)]
+        if not all(bool(torch.isfinite(v).all()) for v in vals):
+            raise AssertionError(f"flagship forecast: {mid} not finite")
+        if not bool((vals[0] <= vals[2]).all()):
+            raise AssertionError(f"flagship forecast: {lo} > {hi}")
+    print(f"[24] forecast_times on the oracle, {steps} steps from "
+          f"{len(clouds)} final clouds (N={N_ORACLE}): state mean within "
+          f"{gap:.2f} se of the exact predictive mean {exact:.4f}; flagship "
+          f"24 steps at N={N_MAIN} in {secs:.3f} s: finite, lower <= upper "
+          "(obs, eta, state)", flush=True)
+
+
+def phase_pmmh_family(dev, device_line: str, iters: int = 100):
+    """[25] fused PMMH (K8) for a family beyond Gaussian and Poisson:
+    negative_binomial(ou(1)) + seasonal(24, 3, ou(6)), N = 100, T = 400,
+    perturb(0.05); the acceptance rate in (0, 1), K8 once per
+    iteration."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.models import perturb
+
+    model, params = family_model("NegativeBinomial")
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_PMMH, dt=1.0).to_timeseries()
+    pf = ct.make_pf_loglik(model, data, N_PMMH, fused_sweep=True)
+    ct.pmmh(torch.Generator(device=dev).manual_seed(1), params, pf,
+            perturb(0.05), 2)                                  # warm-up
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = ct.pmmh(torch.Generator(device=dev).manual_seed(2), params, pf,
+                  perturb(0.05), iters)
+    rate = float(res.acceptance_rate())
+    secs = time.perf_counter() - t0
+    launches = _read_counters()
+    if launches["K8"] != iters or sum(launches.values()) != iters:
+        raise AssertionError(f"NB PMMH: launches {launches}, expected K8 "
+                             f"{iters}")
+    if not (0.0 < rate < 1.0 and bool(torch.isfinite(res.lls).all())):
+        raise AssertionError(f"NB PMMH: acceptance rate {rate}, lls finite "
+                             f"{bool(torch.isfinite(res.lls).all())}")
+    print(f"[25] PMMH fused_sweep NegativeBinomial(ou(1)) + seasonal(24, 3, "
+          f"ou(6)) N={N_PMMH} T={T_PMMH}: {iters / secs:.1f} iters/s "
+          f"({iters} iterations, {secs:.3f} s), acceptance {rate:.3f}, K8 "
+          f"launched {launches['K8']} times; {device_line}", flush=True)
+    return launches["K8"]
+
+
+def phase_library(gather_in, scan_in):
+    """[26] one PyTorch call that computes each kernel's function, where
+    one exists, on the kernel's own inputs: K4 as ``repeat_interleave`` of
+    the columns by their offspring (``diff(counts)``, made before the
+    timing), K7a as ``torch.cumsum``, K7b as ``torch.cummax``.  Timed as a
+    yardstick only; the port never calls them."""
+    import torch
+
+    from composablestatespacemodels_torch.ops.resample_kernel import (
+        sorted_gather_resample_t_ref)
+
+    x, counts = gather_in
+    w, c = scan_in
+    offspring = torch.diff(counts, prepend=counts.new_zeros(1))
+    n = x.shape[1]
+    if not torch.equal(torch.repeat_interleave(x, offspring, dim=1,
+                                               output_size=n),
+                       sorted_gather_resample_t_ref(x, counts)):
+        raise AssertionError("repeat_interleave differs from K4's function")
+    times = {
+        "K4": _cuda_ms(lambda: torch.repeat_interleave(
+            x, offspring, dim=1, output_size=n), 100),
+        "K7a": _cuda_ms(lambda: torch.cumsum(w, 0), 100),
+        "K7b": _cuda_ms(lambda: torch.cummax(c, 0), 100)}
+    print("[26] one PyTorch call for the same function at N="
+          f"{n}: K4 repeat_interleave {times['K4']:.4f} ms, K7a cumsum "
+          f"{times['K7a']:.4f} ms, K7b cummax {times['K7b']:.4f} ms",
+          flush=True)
     return times
 
 
@@ -1042,54 +1470,98 @@ def main() -> int:
     phase_sweep_path(dev)
     phase_sweep_stats(dev)
     _, pmmh_launches = phase_pmmh(dev, device_line)
-    times.update(phase_timing_pmmh(counts_b_in))
+    pmmh_times, sweep_in = phase_timing_pmmh(counts_b_in)
+    times.update(pmmh_times)
+    k3 = phase_k3(gen, dev, counts_in[3])
+    family_launches = phase_families(dev, device_line)
+    clouds, kf = phase_schemes(dev)
+    phase_forecast(dev, clouds, kf)
+    nb_k8 = phase_pmmh_family(dev, device_line)
+    library = phase_library(gather_in, scan_in)
 
+    # bound_ms from this run's inputs: each input read once, each output
+    # written once; operations counted per element as noted beside each
+    n, d = N_MAIN, 7
+    log_n = math.log2(n)
+    per_col = d * (OPS_NORMAL + 4) + OPS_K3       # K5: propagate + weights
+    b, dk, nk = sweep_in[0].shape
+    steps, kc = sweep_in[1].shape[0], sweep_in[3].shape[-1]
+    k6b_rows, k6b_n = counts_b_in[0].shape
+    bounds = {
+        "K1": _bound(8 * n, 8 * n),        # read w, write counts
+        "K2": _bound(4 * (2 * d * n + 2 * n), n * (per_col + 2 * log_n)),
+        "K4": _bound(4 * (2 * d * n + n), n * 2 * log_n),
+        "K5": _bound(4 * (2 * d * n + n), n * per_col),
+        "K7a": _bound(8 * n, 2 * n),
+        "K7b": _bound(8 * n, n),
+        "K6b": _bound(8 * k6b_rows * k6b_n, 8 * k6b_rows * k6b_n),
+        # clouds in and out, coefficients, design, constants, mask, ll;
+        # per particle-step the propagate and weights, the reductions and
+        # counts (~20) and the ancestor search
+        "K8": _bound(4 * (2 * b * dk * nk + steps * b * dk * 3 + steps * dk
+                          + steps * b * kc + steps + b),
+                     b * nk * steps * (dk * (OPS_NORMAL + 5) + OPS_K3 + 20
+                                       + 2 * math.log2(nk))),
+    }
     src = "composablestatespacemodels_torch/csrc/"
     tpu = "composablestatespacemodels_tpu/ops/"
+    fams = "all seven pointwise families"
     fused = summary_launches["systematic-pallas-fused"]
+
+    def entry(key, name, source, replaces, launches, err, ms, plain_ms):
+        bound_ms, bound_by = bounds[key]
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library.get(key)}
+
     kernels = [
-        {"name": "K1 systematic_counts_fused", "route": "cuda",
-         "source": src + "counts.cu",
-         "replaces": tpu + "scan_kernel.py:550",
-         "launches": launches["K1"], "max_abs_err": k1_err,
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "K2+K3 resample_propagate (Poisson/Gaussian log-density)",
-         "route": "cuda", "source": src + "resample_propagate.cu",
-         "replaces": tpu + "resample_kernel.py:667",
-         "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
-        {"name": "K4 sorted_gather_resample_t", "route": "cuda",
-         "source": src + "gather.cu",
-         "replaces": tpu + "resample_kernel.py:616",
-         "launches": fused["K4"], "max_abs_err": k4_err,
-         "ms": times["K4"][0], "plain_ms": times["K4"][1]},
-        {"name": "K5+K3 propagate_weights_t (Poisson/Gaussian log-density)",
-         "route": "cuda", "source": src + "propagate_weights.cu",
-         "replaces": tpu + "resample_kernel.py:756",
-         "launches": fused["K5"], "max_abs_err": k5_err,
-         "ms": times["K5"][0], "plain_ms": times["K5"][1]},
-        {"name": "K7a prefix_sum", "route": "cuda", "source": src + "scan.cu",
-         "replaces": tpu + "scan_kernel.py:613",
-         "launches": strat_launches["K7a"], "max_abs_err": k7_err,
-         "ms": times["K7a"][0], "plain_ms": times["K7a"][1]},
-        {"name": "K7b cummax_int32", "route": "cuda",
-         "source": src + "scan.cu",
-         "replaces": tpu + "scan_kernel.py:480",
-         "launches": strat_launches["K7b"], "max_abs_err": k7_err,
-         "ms": times["K7b"][0], "plain_ms": times["K7b"][1]},
-        {"name": "K6 batched systematic_counts_batched", "route": "cuda",
-         "source": src + "counts.cu",
-         "replaces": tpu + "scan_kernel.py:302",
-         "launches": pmmh_launches["chains"]["K6b"], "max_abs_err": k6b_err,
-         "ms": times["K6b"][0], "plain_ms": times["K6b"][1]},
-        {"name": "K8+K3 pf_sweep_chains (Poisson/Gaussian log-density)",
-         "route": "cuda", "source": src + "sweep.cu",
-         "replaces": tpu + "sweep_kernel.py:358",
-         "launches": sum(pmmh_launches[k]["K8"] for k in
-                         ("fused", "chains_fused", "fused_n512")),
-         "max_abs_err": k8_err,
-         "ms": times["K8"][0], "plain_ms": times["K8"][1]},
+        entry("K1", "K1 systematic_counts_fused", "counts.cu",
+              tpu + "scan_kernel.py:550", launches["K1"], k1_err,
+              *times["K1"]),
+        entry("K2", f"K2+K3 resample_propagate ({fams})",
+              "resample_propagate.cu", tpu + "resample_kernel.py:667",
+              launches["K2"],
+              max(k2_err, *(v["err"]["K2"] for v in k3.values())),
+              *times["K2"]),
+        entry("K4", "K4 sorted_gather_resample_t", "gather.cu",
+              tpu + "resample_kernel.py:616", fused["K4"], k4_err,
+              *times["K4"]),
+        entry("K5", f"K5+K3 propagate_weights_t ({fams})",
+              "propagate_weights.cu", tpu + "resample_kernel.py:756",
+              fused["K5"], max(k5_err, *(v["err"]["K5"] for v in k3.values())),
+              *times["K5"]),
+        entry("K7a", "K7a prefix_sum", "scan.cu", tpu + "scan_kernel.py:613",
+              strat_launches["K7a"], k7_err, *times["K7a"]),
+        entry("K7b", "K7b cummax_int32", "scan.cu",
+              tpu + "scan_kernel.py:480", strat_launches["K7b"], k7_err,
+              *times["K7b"]),
+        entry("K6b", "K6 batched systematic_counts_batched", "counts.cu",
+              tpu + "scan_kernel.py:302", pmmh_launches["chains"]["K6b"],
+              k6b_err, *times["K6b"]),
+        entry("K8", f"K8+K3 pf_sweep_chains ({fams})", "sweep.cu",
+              tpu + "sweep_kernel.py:358",
+              sum(pmmh_launches[k]["K8"] for k in
+                  ("fused", "chains_fused", "fused_n512")),
+              max(k8_err, *(v["err"]["K8"] for v in k3.values())),
+              *times["K8"]),
     ]
+    # K3 inside K5 at the main path's shapes: its time is K5's with the
+    # family's device function, its launches those of K2 and K5 in the
+    # family's full-width run (and K8 in the negative binomial's PMMH)
+    hooks = {"Gaussian": 86, "Poisson": 116, "ZeroInflatedPoisson": 156,
+             "NegativeBinomial": 196, "Bernoulli": 231, "StudentsT": 275,
+             "Beta": 338}
+    for name, v in k3.items():
+        fl = family_launches[name]
+        kernels.append(entry(
+            "K5", f"K3 {name}", "obs_density.cuh",
+            f"composablestatespacemodels_tpu/models/observation.py:"
+            f"{hooks[name]}",
+            fl["K2"] + fl["K5"] + (nb_k8 if name == "NegativeBinomial"
+                                   else 0),
+            max(v["err"].values()), v["K5"], v["K5 plain"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,34 +11,44 @@ the resampling gather; K5, the standalone propagate + log-density
 running max behind the stratified counts; K6 batched, the systematic
 counts of many chains at once, and K8, many chains' whole filter in one
 launch (PMMH: ``pmmh``, ``pmmh_chains``, ``adaptive_pmmh``,
-``pilot_run``).  On CPU tensors the kernels' plain PyTorch versions run
-instead.
+``pilot_run``).  K3 evaluates any of the seven pointwise observation
+families (Gaussian, Poisson, zero-inflated Poisson, negative binomial,
+Bernoulli, Student-t, Beta) inside K2, K5 and K8.  ``bootstrap_filter``
+takes every resampling scheme of the JAX package and a custom one, and
+forecasting advances a filtering cloud or posterior draws.  On CPU
+tensors the kernels' plain PyTorch versions run instead.
 """
 
 __version__ = "0.1.0"
 
 from . import inference, models, ops, utils
-from .inference import (FilterResult, KalmanResult, PfSummary, PmmhResult,
-                        PmmhState, adaptive_pmmh, bootstrap_filter,
-                        credible_interval_eta, credible_interval_state,
-                        effective_chain_size, gelman_rubin, kalman_filter,
+from .inference import (FilterResult, Forecast, ForecastCloud, KalmanResult,
+                        PfSummary, PmmhResult, PmmhState, adaptive_pmmh,
+                        bootstrap_filter, credible_interval_eta,
+                        credible_interval_state, effective_chain_size,
+                        forecast, forecast_cloud, forecast_from_posterior,
+                        forecast_times, gelman_rubin, kalman_filter,
                         log_likelihood, make_pf_loglik,
                         make_pf_loglik_chains, pilot_run, pmmh_chains)
 from .inference.pmmh import pmmh
-from .models import (branch, brownian_motion, brownian_params, compose,
-                     gen_brownian_motion, gen_brownian_params, leaf, linear,
-                     ou_params, ou_process, param_node, parameters,
-                     params_from_numpy, poisson, seasonal)
+from .models import (bernoulli, beta, branch, brownian_motion,
+                     brownian_params, compose, gen_brownian_motion,
+                     gen_brownian_params, leaf, lgcp, linear,
+                     negative_binomial, ou_params, ou_process, param_node,
+                     parameters, params_from_numpy, poisson, seasonal,
+                     students_t, zero_inflated_poisson)
 from .utils import SimulatedData, TimeSeries, simulate, simulate_regular
 
 __all__ = [
     "models", "inference", "ops", "utils",
-    "poisson", "linear", "seasonal", "compose",
+    "poisson", "linear", "seasonal", "students_t", "bernoulli", "beta",
+    "negative_binomial", "zero_inflated_poisson", "lgcp", "compose",
     "brownian_motion", "gen_brownian_motion", "ou_process",
     "brownian_params", "gen_brownian_params", "ou_params",
     "param_node", "parameters", "params_from_numpy", "leaf", "branch",
     "bootstrap_filter", "log_likelihood", "FilterResult", "PfSummary",
-    "credible_interval_eta", "credible_interval_state",
+    "forecast", "forecast_cloud", "forecast_times", "forecast_from_posterior",
+    "Forecast", "ForecastCloud", "credible_interval_eta", "credible_interval_state",
     "kalman_filter", "KalmanResult",
     "pmmh", "pmmh_chains", "adaptive_pmmh", "make_pf_loglik",
     "make_pf_loglik_chains", "pilot_run", "gelman_rubin",

@@ -3,7 +3,8 @@
 //
 // Replaces ops/resample_kernel.py::propagate_weights_t of the JAX package
 // (:756; body _propagate_weights_block :410) with the observation hooks of
-// models/observation.py as K3 (obs_density.cuh).  For every column j:
+// models/observation.py (all seven pointwise families) as K3
+// (obs_density.cuh), one instantiation per family.  For every column j:
 //
 //   y[r, j] = a_r * x[r, j] + b_r + s_r * z_{r,j}        (z ~ N(0, 1))
 //   logw[j] = fn(sum_r design_r * y[r, j], consts)       (with a family)
@@ -63,14 +64,12 @@ extern "C" int cssm_propagate_weights(const void* x, const void* coef,
   if (family == kNoWeights) {
     propagate_weights_kernel<kNoWeights><<<blocks, kThreads, 0, s>>>(
         xp, kp, wp, sp, (float*)y, (float*)logw, d, n);
-  } else if (family == kGaussian) {
-    propagate_weights_kernel<kGaussian><<<blocks, kThreads, 0, s>>>(
-        xp, kp, wp, sp, (float*)y, (float*)logw, d, n);
-  } else if (family == kPoisson) {
-    propagate_weights_kernel<kPoisson><<<blocks, kThreads, 0, s>>>(
-        xp, kp, wp, sp, (float*)y, (float*)logw, d, n);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return dispatch_family(family, [&](auto fam) {
+    propagate_weights_kernel<decltype(fam)::value>
+        <<<blocks, kThreads, 0, s>>>(xp, kp, wp, sp, (float*)y,
+                                     (float*)logw, d, n);
+    return (int)cudaGetLastError();
+  });
 }

@@ -4,8 +4,8 @@
 // Replaces ops/resample_kernel.py::sorted_gather_resample_propagate_t of the
 // JAX package (:667; _merge_kernel_body :66, _merge_propagate_tail :381,
 // _propagate_weights_block :410) with the observation hooks of
-// models/observation.py (Gaussian :80, Poisson :110) as the device function
-// K3 (obs_density.cuh).  For every output column j:
+// models/observation.py (all seven pointwise families) as the device
+// function K3 (obs_density.cuh), one instantiation per family.  For every output column j:
 //
 //   anc_j   = first i with counts[i] > j
 //   y[r, j] = a_r * x[r, anc_j] + b_r + s_r * z_{r,j}        (z ~ N(0, 1))
@@ -64,14 +64,10 @@ extern "C" int cssm_resample_propagate(const void* x, const void* counts,
   const auto* kp = (const float*)coef;
   const auto* wp = (const float*)consts;
   const auto* sp = (const int*)seed;
-  if (family == kGaussian) {
-    resample_propagate_kernel<kGaussian><<<blocks, kThreads, 0, s>>>(
-        xp, cp, kp, wp, sp, (float*)y, (float*)logw, d, n);
-  } else if (family == kPoisson) {
-    resample_propagate_kernel<kPoisson><<<blocks, kThreads, 0, s>>>(
-        xp, cp, kp, wp, sp, (float*)y, (float*)logw, d, n);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return dispatch_family(family, [&](auto fam) {
+    resample_propagate_kernel<decltype(fam)::value>
+        <<<blocks, kThreads, 0, s>>>(xp, cp, kp, wp, sp, (float*)y,
+                                     (float*)logw, d, n);
+    return (int)cudaGetLastError();
+  });
 }

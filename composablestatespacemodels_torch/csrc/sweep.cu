@@ -2,8 +2,9 @@
 //
 // Replaces ops/sweep_kernel.py::pf_sweep_chains of the JAX package (:358;
 // bodies _make_sweep_kernel :109 for n <= 128 and _make_sweep_kernel_multi
-// :206 for n <= 1024) with the observation hooks of models/observation.py as
-// K3 (obs_density.cuh).  For each chain b and step t, on the cloud x [d, n]:
+// :206 for n <= 1024) with the observation hooks of models/observation.py
+// (all seven pointwise families, one instantiation each) as K3
+// (obs_density.cuh).  For each chain b and step t, on the cloud x [d, n]:
 //
 //   x[r, j]  = a * x[r, j] + b + s * z          (coef[t, b, r] = (a, b, s))
 //   logw[j]  = observed[t] ? fn(sum_r design[t, r] * x[r, j], wconsts[t, b])
@@ -214,15 +215,9 @@ extern "C" int cssm_pf_sweep_chains(const void* x0, const void* coef,
   const auto* mp = (const int*)mask;
   const auto* sp = (const int*)seed;
   cudaStream_t s = (cudaStream_t)stream;
-  if (family == kGaussian) {
-    return launch_sweep<kGaussian>(xp, cp, gp, wp, mp, sp, (float*)ll,
-                                   (float*)x_final, chains, d, n, steps, kc,
-                                   log_n, smem, s);
-  }
-  if (family == kPoisson) {
-    return launch_sweep<kPoisson>(xp, cp, gp, wp, mp, sp, (float*)ll,
-                                  (float*)x_final, chains, d, n, steps, kc,
-                                  log_n, smem, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dispatch_family(family, [&](auto fam) {
+    return launch_sweep<decltype(fam)::value>(
+        xp, cp, gp, wp, mp, sp, (float*)ll, (float*)x_final, chains, d, n,
+        steps, kc, log_n, smem, s);
+  });
 }

@@ -1,13 +1,18 @@
 from . import filter as filter_mod
 from . import kalman, pmmh, resampling
-from .filter import (FilterResult, PfSummary, bootstrap_filter,
-                     credible_interval_eta, credible_interval_state,
-                     log_likelihood)
+from .filter import (FilterResult, Forecast, ForecastCloud, PfSummary,
+                     bootstrap_filter, credible_interval_eta,
+                     credible_interval_state, forecast, forecast_cloud,
+                     forecast_from_posterior, forecast_times, log_likelihood)
 from .kalman import KalmanResult, kalman_filter
 from .pmmh import (PmmhResult, PmmhState, adaptive_pmmh,
                    effective_chain_size, flat_prior, gelman_rubin,
                    initial_state, make_pf_loglik, make_pf_loglik_chains,
                    pilot_run, pmmh_chains, symmetric_transition)
+from .resampling import (effective_sample_size, exp_normalise,
+                         identity_indices, multinomial_indices, resample,
+                         residual_indices, stratified_indices,
+                         systematic_indices)
 
 __all__ = [
     "resampling", "kalman", "pmmh",
@@ -16,6 +21,11 @@ __all__ = [
     "gelman_rubin", "effective_chain_size", "flat_prior",
     "symmetric_transition",
     "bootstrap_filter", "log_likelihood", "FilterResult", "PfSummary",
+    "Forecast", "ForecastCloud", "forecast", "forecast_cloud",
+    "forecast_times", "forecast_from_posterior",
     "credible_interval_eta", "credible_interval_state",
     "kalman_filter", "KalmanResult",
+    "systematic_indices", "stratified_indices", "multinomial_indices",
+    "residual_indices", "identity_indices", "resample",
+    "effective_sample_size", "exp_normalise",
 ]

@@ -1,48 +1,55 @@
-"""Bootstrap particle filter on the ``[d, N]`` particle cloud.
+"""Bootstrap particle filter on the ``[d, N]`` particle cloud, and
+forecasting.
 
-PyTorch port of the transposed paths of
-``composablestatespacemodels_tpu/inference/filter.py``: the summaries
-(:47-344), ``_filter_impl_t`` (:347), ``_filter_impl_t_fused`` (:494),
-their dispatch in ``_filter_impl`` (:678-699), ``bootstrap_filter`` (:784)
-and ``log_likelihood`` (:868).  The schemes keep the JAX names, so one
-string drives both packages:
+PyTorch port of ``composablestatespacemodels_tpu/inference/filter.py``:
+the summaries (:47-344), the filter scans ``_filter_impl_t`` (:347),
+``_filter_impl_t_fused`` (:494) and ``_filter_impl`` (:670),
+``bootstrap_filter`` (:784), ``log_likelihood`` (:868) and forecasting
+(:885-1073).  The schemes keep the JAX names, so one string drives both
+packages.  ``[d, N]`` is the only internal layout (the JAX package keeps a
+second ``[N, d]`` scan only because the TPU could not block-copy ``[N,
+d]``); the user-facing API takes and returns ``[N, d]``.
 
-* ``"systematic-pallas"`` / ``"stratified-pallas"`` (:func:`_filter_impl_t`):
-  each step propagates the cloud to the observation time with the exact
-  transition (torch ops, as ``model.step_t``), weights it
-  (``ll += max + log(total)``, ParticleFilter.scala:124-127), resamples --
-  the systematic counts by K1, or the stratified counts through K7a/K7b,
-  then the K4 gather -- and saves the step's summary, path or callable.
-* ``"systematic"`` with ``store`` ``"ll"``/None (the default of PMMH's
-  ``make_pf_loglik``): :func:`_filter_impl_t` with the systematic counts
-  (K1) and the K4 gather.  The JAX package bit-compares its ``[N, d]``
-  systematic scan against ``"systematic-pallas"`` (its ``filter.py:803-808``),
-  so one ``[d, N]`` route serves both names.
+* :func:`_filter_impl_t` serves every scheme name of the JAX package and a
+  custom scheme, with every store mode and ``ess_threshold``.  Each step
+  propagates the cloud to the observation time (the exact transition in
+  torch ops, Euler-Maruyama for an SDE without one, or K5 + K3 under the
+  fused scheme), weights it (``ll += max + log(total)``,
+  ParticleFilter.scala:124-127), resamples and saves the step's summary,
+  path or callable.  A counts scheme resamples through the K4 gather:
+  ``"systematic"`` / ``"systematic-pallas"`` (the default; counts by K1),
+  ``"stratified"`` / ``"stratified-pallas"`` and ``"multinomial"`` (counts
+  through K7a/K7b).  An index scheme resamples by an index gather along
+  the particle axis: ``"residual"``, ``"identity"`` and a callable
+  ``(generator, weights) -> indices``.  The JAX package bit-compares its
+  ``[N, d]`` scan against the ``-pallas`` names (its ``filter.py:803-808``),
+  so one route serves both.
 * ``"systematic-pallas-fused"`` (alias ``"systematic-fused"``): with
   ``store`` ``"ll"``/None and no ESS trigger, :func:`_filter_impl_t_fused`,
   which folds each step's propagate and next weights into the resample
   (K1, then K2 + K3).  Otherwise (a store mode needs the unpropagated
   resampled cloud) :func:`_filter_impl_t` with the propagate and weights
-  in K5 + K3.
+  in K5 + K3.  Both need an exact transition.
 
-Every per-step input (transition coefficients, design vector, observation
-constants, seeds, uniforms, the store's draws) is computed in one batched
-pass before the loop, the mask is read on the host once, and ``ll``/``ess``
-stay on the device until the end: the loop body only slices and launches,
-and never waits for the device -- except under ``ess_threshold``, where
+The per-step inputs that are one value per step (transition coefficients,
+design vector, observation constants, seeds, systematic uniforms, the
+store's draws) are computed in one batched pass before the loop; the
+``[N]`` draws of the other schemes are made at the step.  The mask is read
+on the host once, and ``ll``/``ess`` stay on the device until the end: the
+loop never waits for the device -- except under ``ess_threshold``, where
 whether to resample depends on the step's ESS: one host read per observed
 step on that path only.  A missing observation propagates only and carries
 the weights (ParticleFilter.scala:120-121).
 
-:func:`_filter_ll_chains` is the same systematic ll filter for B chains at
-once on a ``[B, d, N]`` cloud (``pmmh_chains`` and ``pilot_run``, where
-the JAX package ``vmap``s the filter): per-chain parameters, the counts of
-every chain in one K6 batched call, the row gather in torch.
+:func:`_filter_ll_chains` is the systematic ll filter for B chains at once
+on a ``[B, d, N]`` cloud (``pmmh_chains`` and ``pilot_run``, where the JAX
+package ``vmap``s the filter): per-chain parameters, the counts of every
+chain in one K6 batched call, the row gather in torch.
 
-The generic ``[N, d]`` path (the ``"systematic"`` scheme with a store mode,
-the ``"stratified"``, ``"multinomial"``, ``"residual"`` and ``"identity"``
-schemes, custom schemes, Euler-Maruyama models), the other observation
-families and forecasting are ROADMAP Queue 1 item 6.
+Forecasting (:func:`forecast_cloud`, :func:`forecast`,
+:func:`forecast_times`, :func:`forecast_from_posterior`) advances a
+filtering cloud, or posterior draws, with ``model.step`` on ``[N, d]`` and
+samples observations with the family's sampler.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ import torch
 from ..models.model import Model
 from ..models.observation import KERNEL_CONSTS
 from ..models.params import params_to
-from ..models.tree import Tree
+from ..models.tree import Tree, tree_map
 from ..ops.resample_kernel import (propagate_weights_t, resample_propagate,
                                    sorted_gather_resample_t)
 from ..ops.scan_kernel import systematic_counts_fused
@@ -65,13 +72,11 @@ from ..utils.data import TimeSeries
 from . import resampling as rs
 
 _FUSED = ("systematic-pallas-fused", "systematic-fused")
-_COUNTS = {"systematic-pallas": "systematic",
-           "stratified-pallas": "stratified"}
-_GENERIC = ("systematic", "stratified", "multinomial", "residual",
-            "identity")
-_LATER = ("is not ported yet (ROADMAP.md Queue 1 item 6); the PyTorch port "
-          f"runs resample in {sorted((*_COUNTS, *_FUSED))}, and 'systematic' "
-          "with store='ll'")
+_ALIASES = {"systematic-pallas": "systematic",
+            "stratified-pallas": "stratified"}
+# schemes whose counts K4 gathers with; the others give ancestor indices
+_COUNTS = ("systematic", "stratified", "multinomial")
+_SCHEMES = sorted((*rs._SCHEMES, *_ALIASES, *_FUSED))
 
 
 # ---------------------------------------------------------------------------
@@ -250,15 +255,30 @@ def _initial_cloud(model: Model, params: Tree, generator, n: int, x_init):
             else x_init.T).contiguous()
 
 
+def _resample_step(scheme, generator, x1, wn1, u_i):
+    """The resampled cloud: K4 with the counts of a counts scheme (``u_i``
+    the step's systematic uniform), or an index gather along dim 1."""
+    n = x1.shape[1]
+    if scheme == "systematic":
+        return sorted_gather_resample_t(x1, rs.systematic_counts(wn1, u_i))
+    if scheme in _COUNTS:
+        u = torch.rand(n, generator=generator, device=x1.device)
+        counts_fn = (rs.stratified_counts if scheme == "stratified"
+                     else rs.multinomial_counts)
+        return sorted_gather_resample_t(x1, counts_fn(wn1, u))
+    return x1[:, rs.get_scheme(scheme)(generator, wn1).long()]
+
+
 def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
                    n_particles: int, generator: torch.Generator, t0, x_init,
                    store, ess_threshold, interval: float,
-                   fused_propagate: bool, counts_scheme: str,
+                   fused_propagate: bool, scheme,
                    observed: list) -> FilterResult:
-    """Per step: propagate to the observation time (torch ops, or K5 with
-    ``fused_propagate``), weight, update ll and ESS, resample through the
-    counts of ``counts_scheme`` and the K4 gather, save.  ``observed`` is
-    the mask as a host list."""
+    """Per step: propagate to the observation time (torch ops, Euler-
+    Maruyama without an exact transition, or K5 with ``fused_propagate``),
+    weight, update ll and ESS, resample with ``scheme`` (a name of
+    ``resampling._SCHEMES`` or a callable), save.  ``observed`` is the
+    mask as a host list."""
     device = generator.device
     params = params_to(params, device)
     sp = model.sde_params(params)
@@ -271,12 +291,14 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
     x = _initial_cloud(model, params, generator, n, x_init)
     t_start = ts[:1] if t0 is None else torch.tensor(
         [t0], dtype=torch.float32, device=device)
+    dts = ts - torch.cat([t_start, ts[:-1]])
     # every step's inputs, in one batched pass
-    a, b, q = model.sde.transition_coeffs(
-        sp, ts - torch.cat([t_start, ts[:-1]]))                  # [T, d]
+    exact = fused_propagate or model.sde.exact
+    if exact:  # raises for an SDE without an exact transition
+        a, b, q = model.sde.transition_coeffs(sp, dts)           # [T, d]
+        cols = [a, b, torch.sqrt(q)]
     design = model.design_vector(ts)                             # [T, d]
     y_safe = torch.where(mask, ys, 0.0)
-    cols = [a, b, torch.sqrt(q)]
     family_id = None
     if fused_propagate:
         wspec = model.obs.kernel_log_density()
@@ -288,14 +310,10 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
                                  dtype=torch.float32, device=device)
             consts[:, :c.shape[-1]] = c
         seeds = _step_seeds(generator, n_steps)
-    coef = torch.stack(cols, dim=-1).contiguous()                # [T, d, 3|4]
-    if counts_scheme == "stratified":
-        uniforms = torch.rand((n_steps, n), generator=generator,
-                              device=device)
-        counts_fn = rs.stratified_counts
-    else:
-        uniforms = torch.rand(n_steps, generator=generator, device=device)
-        counts_fn = rs.systematic_counts
+    if exact:
+        coef = torch.stack(cols, dim=-1).contiguous()            # [T, d, 3|4]
+    uniforms = (torch.rand(n_steps, generator=generator, device=device)
+                if scheme == "systematic" else [None] * n_steps)
     scale = model.obs_scale(params)
 
     uniform_w = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
@@ -309,9 +327,11 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
             x1, logw = propagate_weights_t(
                 x, coef[i], None if family_id is None else consts[i],
                 seeds[i], family_id)
-        else:
+        elif exact:
             z = torch.randn((d, n), generator=generator, device=device)
             x1 = coef[i, :, 0:1] * x + coef[i, :, 1:2] + coef[i, :, 2:3] * z
+        else:
+            x1 = model.step_t(params, generator, x, dts[i])
         resample = False
         if observed[i]:
             if logw is None:
@@ -325,7 +345,7 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
         else:
             wn1 = wn / torch.sum(wn)
         if resample:
-            x = sorted_gather_resample_t(x1, counts_fn(wn1, uniforms[i]))
+            x = _resample_step(scheme, generator, x1, wn1, uniforms[i])
             wn = uniform_w
         else:
             x, wn = x1, wn1
@@ -464,7 +484,7 @@ def _filter_ll_chains(model: Model, params_b: Tree, data: TimeSeries,
 
 def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
                      n_particles: int, generator: torch.Generator, *,
-                     resample: str = "systematic-fused",
+                     resample="systematic",
                      t0: Optional[float] = None,
                      initial_state=None,
                      store="summary",
@@ -473,19 +493,23 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
     """Run the bootstrap particle filter over a time series.
 
     Args:
-      model: a (possibly composed) model with exact transitions and a
-        Gaussian or Poisson observation family.
+      model: a (possibly composed) model with any pointwise observation
+        family.
       params: parameter tree matching the model composition.
       data: observations on the generator's device.
       n_particles: N.
       generator: ``torch.Generator`` for every random draw; the filter
         runs on its device (CUDA kernels on a card, their plain PyTorch
         versions on the CPU).
-      resample: ``"systematic-pallas"``, ``"stratified-pallas"`` or
-        ``"systematic-pallas-fused"`` (alias ``"systematic-fused"``, the
-        propagate with in-kernel noise: statistically, not bitwise,
-        equivalent to the others); ``"systematic"`` (the same route as
-        ``"systematic-pallas"``) with ``store`` ``"ll"`` or None.
+      resample: ``"systematic"`` (the default, as in the JAX package),
+        ``"stratified"``, ``"multinomial"``, ``"residual"``,
+        ``"identity"`` or a custom ``(generator, weights) -> indices``
+        scheme; ``"systematic-pallas"`` and ``"stratified-pallas"`` (the
+        same routes as ``"systematic"`` and ``"stratified"``); or
+        ``"systematic-pallas-fused"`` (alias ``"systematic-fused"``: the
+        propagate with in-kernel noise, folded into the resample under
+        ``store="ll"``; statistically, not bitwise, equivalent to the
+        others; exact-transition SDEs only).
       t0: start time (default: the first observation time).
       initial_state: optional fixed initial state ``[d]`` or cloud ``[N, d]``.
       store: ``"summary"`` (per-step :class:`PfSummary`), ``"path"`` (one
@@ -510,13 +534,9 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
 def _check_scheme(resample, store) -> None:
     if not (store in ("ll", "summary", "path", None) or callable(store)):
         raise ValueError(f"unknown store mode {store!r}")
-    if resample == "systematic" and store in ("ll", None):
-        return
-    if resample in _GENERIC or callable(resample):
-        raise NotImplementedError(f"resample={resample!r} {_LATER}")
-    if resample not in _FUSED and resample not in _COUNTS:
+    if not (callable(resample) or resample in _SCHEMES):
         raise ValueError(f"unknown resampling scheme {resample!r}; choose "
-                         f"from {sorted((*_COUNTS, *_FUSED, *_GENERIC))}")
+                         f"from {_SCHEMES}")
 
 
 def _run(model, params, data, n_particles, generator, resample, t0,
@@ -524,22 +544,171 @@ def _run(model, params, data, n_particles, generator, resample, t0,
          observed: list) -> FilterResult:
     """The route of ``resample`` and ``store`` (checked), with the mask as
     the host list ``observed``."""
-    if (resample in _FUSED and store in ("ll", None) and ess_threshold is None
+    fused = not callable(resample) and resample in _FUSED
+    if (fused and store in ("ll", None) and ess_threshold is None
             and model.obs.kernel_log_density() is not None):
         return _filter_impl_t_fused(model, params, data, n_particles,
                                     generator, t0, initial_state, observed)
+    scheme = ("systematic" if fused else resample if callable(resample)
+              else _ALIASES.get(resample, resample))
     return _filter_impl_t(model, params, data, n_particles, generator, t0,
                           initial_state, store, ess_threshold, interval,
-                          fused_propagate=resample in _FUSED,
-                          counts_scheme=_COUNTS.get(resample, "systematic"),
+                          fused_propagate=fused, scheme=scheme,
                           observed=observed)
 
 
 def log_likelihood(model: Model, params: Tree, data: TimeSeries,
                    n_particles: int, generator: torch.Generator, *,
-                   resample: str = "systematic-fused",
-                   **kwargs) -> torch.Tensor:
+                   resample="systematic", **kwargs) -> torch.Tensor:
     """Log marginal-likelihood estimate only (reference ``llFilter``,
     ParticleFilter.scala:137-140)."""
     return bootstrap_filter(model, params, data, n_particles, generator,
                             resample=resample, store="ll", **kwargs).ll
+
+
+# ---------------------------------------------------------------------------
+# forecasting (reference: ParticleFilter.scala:368-410)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Forecast:
+    """Reference ``ForecastOut`` (ParticleFilter.scala:71-78); every field
+    gains a leading ``[T]`` axis over several forecast times."""
+
+    t: torch.Tensor
+    obs_mean: torch.Tensor
+    obs_lower: torch.Tensor
+    obs_upper: torch.Tensor
+    eta_mean: torch.Tensor
+    eta_lower: torch.Tensor
+    eta_upper: torch.Tensor
+    state_mean: torch.Tensor
+    state_lower: torch.Tensor
+    state_upper: torch.Tensor
+
+
+
+
+@dataclasses.dataclass(frozen=True)
+class ForecastCloud:
+    """Per-particle predictive draws at one future time: the reference
+    ``getForecast``'s per-particle ``Vector[ObservationWithState]``
+    (ParticleFilter.scala:368-390); :meth:`summarise` gives its pooled
+    ``getMeanForecast`` view (:392-410)."""
+
+    t: torch.Tensor      # scalar forecast time
+    state: torch.Tensor  # [N, d] propagated latent states
+    gamma: torch.Tensor  # [N] linear predictor f(x, t)
+    eta: torch.Tensor    # [N] link(gamma)
+    obs: torch.Tensor    # [N] sampled observations
+
+    def summarise(self, interval: float = 0.995) -> Forecast:
+        """Pool the cloud into the :class:`Forecast` summary."""
+        s_lo, s_hi = credible_interval_state(self.state, interval)
+        e_lo, e_hi = credible_interval_eta(self.eta, interval)
+        o_lo, o_hi = credible_interval_eta(self.obs, interval)
+        return Forecast(self.t, torch.mean(self.obs), o_lo, o_hi,
+                        torch.mean(self.eta), e_lo, e_hi,
+                        torch.mean(self.state, dim=0), s_lo, s_hi)
+
+
+def _forecast_step(model, params, generator, x, t_prev, t) -> ForecastCloud:
+    """Advance ``x [..., d]`` from ``t_prev`` to ``t`` with ``model.step``
+    and sample one observation per state."""
+    x1 = model.step(params, generator, x, t - t_prev)
+    gamma = model.f(x1, t)
+    return ForecastCloud(t, x1, gamma, model.link(gamma),
+                         model.sample_obs(generator, params, gamma))
+
+
+def _forecast_steps(model, params, generator, x, t_prev, ts,
+                    interval) -> Forecast:
+    """Advance ``x`` from time to time over ``ts [T]``, each step's cloud
+    summarised; the summaries stacked along a leading ``[T]`` axis."""
+    outs = []
+    for t in ts:
+        cloud = _forecast_step(model, params, generator, x, t_prev, t)
+        outs.append(cloud.summarise(interval))
+        x, t_prev = cloud.state, t
+    return Forecast(*(torch.stack([getattr(f, fl.name) for f in outs])
+                      for fl in dataclasses.fields(Forecast)))
+
+
+def _times(t, device) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=torch.float32).to(device)
+
+
+def forecast_cloud(model: Model, params: Tree, particles, t_prev, t,
+                   generator: torch.Generator) -> ForecastCloud:
+    """Advance a filtering particle cloud ``[N, d]`` (exchangeable,
+    post-resampling, e.g. ``FilterResult.final_particles``) to time ``t``
+    and return the per-particle predictive draws (reference
+    ``getForecast``, ParticleFilter.scala:368-390)."""
+    device = generator.device
+    params = params_to(params, device)
+    return _forecast_step(model, params, generator, particles,
+                          _times(t_prev, device), _times(t, device))
+
+
+def forecast(model: Model, params: Tree, particles, t_prev, t,
+             generator: torch.Generator,
+             interval: float = 0.995) -> Forecast:
+    """:func:`forecast_cloud` summarised (reference getForecast /
+    getMeanForecast, ParticleFilter.scala:368-410): the same generator
+    state gives the same draws."""
+    return forecast_cloud(model, params, particles, t_prev, t,
+                          generator).summarise(interval)
+
+
+def forecast_times(model: Model, params: Tree, particles, t_prev, ts,
+                   generator: torch.Generator,
+                   interval: float = 0.995) -> Forecast:
+    """Iterated forecast over the future times ``ts [T]``: the cloud
+    advances from time to time, each summarised."""
+    device = generator.device
+    return _forecast_steps(model, params_to(params, device), generator,
+                           particles, _times(t_prev, device),
+                           _times(ts, device), interval)
+
+
+def forecast_from_posterior(model: Model, stacked_params,
+                            generator: torch.Generator, t0, ts,
+                            n_samples: int, state_samples=None,
+                            interval: float = 0.995) -> Forecast:
+    """Forecast driven by posterior parameter (and optionally state) draws
+    (SimulateData.forecast, Data.scala:202-231): ``n_samples`` parameter
+    draws, uniformly with replacement from ``stacked_params`` (a tree with
+    a leading sample axis, e.g. a thinned ``PmmhResult.params``), each
+    with its own latent trajectory over ``ts``; summaries pool over draws.
+
+    ``state_samples [k, d]``: when ``k`` equals the number of parameter
+    draws available, row ``i`` is the joint posterior partner of parameter
+    draw ``i`` (a ``pmmh(store_state=True)`` result) and the pairing is
+    kept; otherwise (an exchangeable filtering cloud) states are drawn
+    uniformly and independently of the parameters.  Default: fresh draws
+    from each parameter set's initial distribution.  The draws run as one
+    chain-batched step per time, parameters ``[S, ...]`` against states
+    ``[S, d]``."""
+    device = generator.device
+    stacked_params = params_to(stacked_params, device)
+    ts = _times(ts, device)
+    n_avail = rs._leading(stacked_params)
+    idx = torch.randint(0, n_avail, (n_samples,), generator=generator,
+                        device=device)
+    picked = tree_map(lambda v: v[idx], stacked_params)
+    if state_samples is None:
+        m0, c0 = model.sde.initial_moments(model.sde_params(picked))
+        x = m0 + torch.sqrt(c0) * torch.randn(m0.shape, generator=generator,
+                                              device=device)
+    else:
+        state_samples = torch.as_tensor(state_samples, dtype=torch.float32,
+                                        device=device)
+        if state_samples.shape[0] == n_avail:
+            x = state_samples[idx]           # joint draws: keep the pairs
+        else:
+            x = state_samples[torch.randint(
+                0, state_samples.shape[0], (n_samples,), generator=generator,
+                device=device)]
+    return _forecast_steps(model, picked, generator, x, _times(t0, device),
+                           ts, interval)

@@ -140,9 +140,11 @@ def make_pf_loglik(model: Model, data: TimeSeries, n_particles: int,
     ONE particle sampled uniformly from the final resampled cloud (the
     reference ``filterLlState``'s sampled latent state).
 
+    ``resample`` takes every scheme name of :func:`..filter.bootstrap_filter`.
     ``fused_sweep`` evaluates the likelihood through K8 (n_particles <=
-    1024, Gaussian or Poisson observations): the whole T-step filter in one
-    launch, for exactly the one chain asked for.
+    1024, exact transitions, an observation family with a K3 hook): the
+    whole T-step filter in one launch, for exactly the one chain asked
+    for.
 
     The callable has a batched form ``.chains(generator, params_b) -> ll
     [B]`` (or ``(ll [B], state [B, d])``) for chain-batched parameters,
@@ -209,8 +211,9 @@ def make_pf_loglik_chains(model: Model, data: TimeSeries, n_particles: int,
     bootstrap-filter sweep in ONE launch
     (:func:`..ops.sweep_kernel.pf_sweep_chains`).  Statistically equivalent
     to the chain-axis form of :func:`make_pf_loglik` (different random
-    streams); requires ``n_particles <= 1024`` and an observation family
-    with a K3 hook (Gaussian, Poisson).  Feed to :func:`pmmh_chains` as
+    streams); requires ``n_particles <= 1024``, exact transitions and an
+    observation family with a K3 hook (the seven pointwise families; a
+    family without one raises ``ValueError``).  Feed to :func:`pmmh_chains` as
     ``pf_ll_chains=``.  With ``store_state`` the callable returns ``(ll
     [B], state [B, d])``, per chain one particle of the final cloud.
 

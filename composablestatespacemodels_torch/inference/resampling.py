@@ -1,5 +1,5 @@
-"""Systematic and stratified resampling as cumulative position counts: the
-count producers of ``composablestatespacemodels_tpu/inference/resampling.py``.
+"""Resampling schemes: PyTorch port of
+``composablestatespacemodels_tpu/inference/resampling.py``.
 
 Resampling works on *counts*: ``counts[i]`` is the number of resampling
 positions strictly below ``cdf[i]``, so particle ``i`` owns output slots
@@ -13,6 +13,19 @@ device kernels (K7a :func:`..ops.scan_kernel.prefix_sum`, K7b
 tensors, and the systematic counts to K1 (``resampling.py:40-62, 127-136``
 of the JAX package); elsewhere the plain versions run.
 
+The systematic, stratified and multinomial schemes produce counts (the
+filter gathers with K4); residual and identity produce ancestor indices.
+Every scheme takes the JAX package's TPU branch -- counts, search-free --
+on every device, so there is one path: multinomial counts come from one
+merged-rank stable sort of ``[u, cdf]``, and the residual fill from those
+counts under a random slot permutation.  Each scheme has an inner form
+that takes its uniforms (and permutation) explicitly
+(:func:`stratified_counts`, :func:`multinomial_counts`,
+:func:`_residual_from_draws`), so the tests can feed it the JAX package's
+draws; the ``*_indices`` functions draw from a ``torch.Generator``, the
+port's counterpart of a key, with ``(generator, weights[, n])`` as the
+scheme contract.
+
 The prefix sum accumulates in float64 and rounds each entry to float32.
 :func:`_cumsum_ref` replays the kernels' association order
 (``csrc/scan.cuh``: a tile of 1024 threads x 4 items, warp-shuffle trees),
@@ -24,6 +37,8 @@ one at ties -- ``resampling.py:26-63`` of the JAX package).
 from __future__ import annotations
 
 import torch
+
+from ..models.tree import tree_map
 
 _THREADS, _ITEMS = 1024, 4   # csrc/scan.cuh: kThreads, kItems
 _TILE = _THREADS * _ITEMS
@@ -146,6 +161,20 @@ def _monotone_counts(counts: torch.Tensor) -> torch.Tensor:
     return torch.cummax(counts, dim=0).values
 
 
+def _monotone_cdf(cdf: torch.Tensor) -> torch.Tensor:
+    """Exact running max of a nonnegative float32 cdf, for algorithms that
+    need the cdf itself sorted (the merged-rank multinomial counts): K7b
+    through an order-preserving int32 bitcast for a CUDA ``[N]`` tensor
+    (nonnegative IEEE floats order as their bits), ``torch.cummax``
+    elsewhere.  ``resampling.py:66-80`` of the JAX package."""
+    _check_device(cdf)
+    if (cdf.device.type == "cuda" and cdf.dtype == torch.float32
+            and cdf.ndim == 1):
+        from ..ops.scan_kernel import cummax_int32
+        return cummax_int32(cdf.view(torch.int32)).view(torch.float32)
+    return torch.cummax(cdf, dim=-1).values
+
+
 def _counts_from_cdf(cdf: torch.Tensor, u, n: int) -> torch.Tensor:
     """``cummax(clip(ceil(n*cdf - u), 0, n))`` with ``counts[-1] = n``,
     along the last axis (``u`` broadcasts against ``cdf``).
@@ -230,3 +259,189 @@ def _ancestors_from_counts(counts: torch.Tensor, n_out: int) -> torch.Tensor:
         m, dtype=torch.int32, device=counts.device).expand(targets.shape),
         reduce="amax")
     return torch.cummax(seed[..., :n_out], dim=-1).values
+
+
+def _normalise(w: torch.Tensor) -> torch.Tensor:
+    """w / sum(w).  Reference: Resampling.scala:21-24."""
+    return w / torch.sum(w)
+
+
+def _multinomial_from_cdf(cdf: torch.Tensor, u: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """Multinomial counts before the running max, from a sorted cdf ``[m]``
+    and the ``[n]`` uniform positions: in the stable sort of ``[u, cdf]``
+    the merged rank of ``cdf[i]`` is ``#(u <= cdf[i]) + i`` (ties put the
+    position first, the ``side='left'`` lookup), so ``counts[i] =
+    rank(cdf[i]) - i``; clipped to ``[0, n]``, ``counts[-1] = n``."""
+    m = cdf.shape[0]
+    order = torch.sort(torch.cat([u, cdf]), stable=True).indices
+    rank = torch.empty(n + m, dtype=torch.int32, device=cdf.device)
+    rank[order] = torch.arange(n + m, dtype=torch.int32, device=cdf.device)
+    counts = torch.clamp(rank[n:] - torch.arange(
+        m, dtype=torch.int32, device=cdf.device), 0, n)
+    counts[-1] = n
+    return counts
+
+
+def multinomial_counts(weights: torch.Tensor, u: torch.Tensor,
+                       n: int | None = None) -> torch.Tensor:
+    """Monotone cumulative position counts for multinomial resampling from
+    the ``[n]`` iid uniform positions ``u``: one merged-rank stable sort,
+    no search.  The float32 prefix can dip by an ulp, and the rank identity
+    needs a sorted cdf, so the cdf is monotonised first (K7b through
+    :func:`_monotone_cdf`), then the counts (K7b).  The same multiset of
+    ancestors as a per-position lookup (Resampling.scala:92-96), produced
+    in sorted order.  ``multinomial_counts`` (:177) of the JAX package."""
+    n = weights.shape[0] if n is None else n
+    cdf = _monotone_cdf(_cumsum(_normalise(weights)))
+    return _monotone_counts(_multinomial_from_cdf(cdf, u, n))
+
+
+def _iid_draws_sorted_permuted(weights: torch.Tensor, u: torch.Tensor,
+                               perm: torch.Tensor) -> torch.Tensor:
+    """n iid draws from ``weights``, search-free: the multinomial ancestors
+    (sorted) under the random slot permutation ``perm``, which restores
+    exchangeability, so any prefix is an iid sample too
+    (``_iid_draws_sorted_permuted`` :233 of the JAX package)."""
+    n = u.shape[0]
+    return _ancestors_from_counts(multinomial_counts(weights, u, n), n)[perm]
+
+
+def _residual_from_draws(weights: torch.Tensor, u: torch.Tensor,
+                         perm: torch.Tensor) -> torch.Tensor:
+    """Residual resampling with fixed shapes, its draws given: particle i
+    is copied ``floor(n w_i)`` times into the first ``K = sum floor(n w)``
+    slots, and the slots from K on take iid draws from the residual weights
+    (Resampling.scala:130-146; ``residual_indices`` :250 of the JAX
+    package, its TPU branch)."""
+    n = u.shape[0]
+    wn = _normalise(weights)
+    ki = torch.floor(wn * n).to(torch.int32)
+    # slot j < K holds the first i with cumsum(ki)[i] > j
+    det = _ancestors_from_counts(torch.cumsum(ki, 0).to(torch.int32), n)
+    residual = torch.clamp(wn * n - ki, min=0.0)
+    # uniform residual weights where the residual mass is 0 (every slot
+    # is then deterministic)
+    safe = torch.where(torch.sum(residual) > 0, residual,
+                       torch.ones_like(residual))
+    multi = _iid_draws_sorted_permuted(safe, u, perm)
+    slot = torch.arange(n, device=weights.device)
+    return torch.where(slot < torch.sum(ki), det, multi)
+
+
+def _uniforms(generator: torch.Generator, shape, weights: torch.Tensor):
+    return torch.rand(shape, generator=generator, device=weights.device)
+
+
+def systematic_indices(generator, weights, n: int | None = None):
+    """Systematic resampling ancestors (Resampling.scala:63-72)."""
+    n = weights.shape[0] if n is None else n
+    return _ancestors_from_counts(
+        systematic_counts(weights, _uniforms(generator, (), weights), n), n)
+
+
+def stratified_indices(generator, weights, n: int | None = None):
+    """Stratified resampling ancestors (Resampling.scala:78-86)."""
+    n = weights.shape[0] if n is None else n
+    return _ancestors_from_counts(
+        stratified_counts(weights, _uniforms(generator, (n,), weights), n), n)
+
+
+def multinomial_indices(generator, weights, n: int | None = None):
+    """Multinomial resampling ancestors (Resampling.scala:92-96), sorted:
+    ancestors are exchangeable, so order is irrelevant to every consumer."""
+    n = weights.shape[0] if n is None else n
+    return _ancestors_from_counts(multinomial_counts(
+        weights, _uniforms(generator, (n,), weights), n), n)
+
+
+def residual_indices(generator, weights, n: int | None = None):
+    """Residual resampling ancestors (Resampling.scala:130-146)."""
+    n = weights.shape[0] if n is None else n
+    u = _uniforms(generator, (n,), weights)
+    perm = torch.randperm(n, generator=generator, device=weights.device)
+    return _residual_from_draws(weights, u, perm)
+
+
+def identity_indices(generator, weights, n: int | None = None):
+    """No resampling.  Reference: Resampling.scala:29."""
+    m = weights.shape[0]
+    n = m if n is None else n
+    return torch.arange(n, device=weights.device) % m
+
+
+_SCHEMES = {
+    "systematic": systematic_indices,
+    "stratified": stratified_indices,
+    "multinomial": multinomial_indices,
+    "residual": residual_indices,
+    "identity": identity_indices,
+}
+
+
+def get_scheme(name_or_fn):
+    """The ``(generator, weights) -> indices`` function of a scheme name,
+    or the callable itself."""
+    if callable(name_or_fn):
+        return name_or_fn
+    try:
+        return _SCHEMES[name_or_fn]
+    except KeyError:
+        raise ValueError(
+            f"unknown resampling scheme {name_or_fn!r}; "
+            f"choose from {sorted(_SCHEMES)}") from None
+
+
+def _take(xs, idx):
+    return tree_map(lambda x: x[idx], xs)
+
+
+def _leading(xs) -> int:
+    """The leading size of the first tensor of a tree."""
+    sizes = []
+    tree_map(lambda x: sizes.append(x.shape[0]), xs)
+    return sizes[0]
+
+
+def resample(generator, particles, weights, scheme="systematic"):
+    """Gather a resampled particle set: a tensor, or a tree of tensors with
+    leading axis N."""
+    return _take(particles, get_scheme(scheme)(generator, weights))
+
+
+def exp_normalise(logw: torch.Tensor) -> torch.Tensor:
+    """Log weights -> normalised linear weights without overflow
+    (Resampling.scala:102-108)."""
+    w = torch.exp(logw - torch.max(logw))
+    return w / torch.sum(w)
+
+
+def effective_sample_size(weights: torch.Tensor) -> torch.Tensor:
+    """floor(1 / sum(w_hat^2)) from unnormalised linear weights
+    (ParticleFilter.scala:431-434)."""
+    wn = _normalise(weights)
+    return torch.floor(1.0 / torch.sum(wn * wn)).to(torch.int32)
+
+
+def sample_one(generator, xs):
+    """One element, uniformly, along the leading axis
+    (Resampling.sampleOne, Resampling.scala:151-154)."""
+    i = torch.randint(0, _leading(xs), (), generator=generator,
+                      device=generator.device)
+    return _take(xs, i)
+
+
+def sample_many(generator, n: int, xs):
+    """n elements uniformly WITHOUT replacement (Resampling.sampleMany,
+    Resampling.scala:159-162)."""
+    idx = torch.randperm(_leading(xs), generator=generator,
+                         device=generator.device)[:n]
+    return _take(xs, idx)
+
+
+def posterior_sample(generator, stacked, n: int):
+    """n draws with replacement from a stacked posterior tree
+    (Streaming.createDist, Streaming.scala:170-174)."""
+    idx = torch.randint(0, _leading(stacked), (n,), generator=generator,
+                        device=generator.device)
+    return _take(stacked, idx)

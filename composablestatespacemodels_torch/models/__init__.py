@@ -1,7 +1,10 @@
 from . import bijectors, observation, params, sde, tree
 from .model import (ComposedModel, FirstElement, Fourier, LeafModel, Model,
-                    compose, linear, poisson, seasonal)
-from .observation import Gaussian, ObservationFamily, Poisson
+                    bernoulli, beta, compose, lgcp, linear, negative_binomial,
+                    poisson, seasonal, students_t, zero_inflated_poisson)
+from .observation import (Bernoulli, Beta, Gaussian, LogGaussianCox,
+                          NegativeBinomial, ObservationFamily, Poisson,
+                          StudentsT, ZeroInflatedPoisson)
 from .params import (BrownianParams, GenBrownianParams, OuParams, ParamNode,
                      add_flat, brownian_params,
                      brownian_params_unconstrained, covariance_params,
@@ -20,8 +23,10 @@ from .tree import Branch, Leaf, Tree, branch, leaf, tree_map
 __all__ = [
     "bijectors", "observation", "params", "sde", "tree",
     "Model", "LeafModel", "ComposedModel", "FirstElement", "Fourier",
-    "poisson", "linear", "seasonal", "compose",
-    "ObservationFamily", "Gaussian", "Poisson",
+    "poisson", "linear", "seasonal", "compose", "students_t", "bernoulli",
+    "beta", "negative_binomial", "zero_inflated_poisson", "lgcp",
+    "ObservationFamily", "Gaussian", "Poisson", "ZeroInflatedPoisson",
+    "NegativeBinomial", "Bernoulli", "StudentsT", "Beta", "LogGaussianCox",
     "BrownianParams", "GenBrownianParams", "OuParams", "ParamNode",
     "brownian_params", "gen_brownian_params", "ou_params", "param_node",
     "parameters", "param_repeat", "params_from_numpy", "params_to",

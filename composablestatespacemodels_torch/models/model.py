@@ -245,6 +245,30 @@ def seasonal(period: int, harmonics: int, sde: Sde) -> LeafModel:
     return LeafModel(obs_mod.Gaussian(), sde, Fourier(period, harmonics))
 
 
+def students_t(sde: Sde, df: int = 4) -> LeafModel:
+    return LeafModel(obs_mod.StudentsT(df), sde, FirstElement())
+
+
+def bernoulli(sde: Sde) -> LeafModel:
+    return LeafModel(obs_mod.Bernoulli(), sde, FirstElement())
+
+
+def beta(sde: Sde) -> LeafModel:
+    return LeafModel(obs_mod.Beta(), sde, FirstElement())
+
+
+def negative_binomial(sde: Sde) -> LeafModel:
+    return LeafModel(obs_mod.NegativeBinomial(), sde, FirstElement())
+
+
+def zero_inflated_poisson(sde: Sde) -> LeafModel:
+    return LeafModel(obs_mod.ZeroInflatedPoisson(), sde, FirstElement())
+
+
+def lgcp(sde: Sde) -> LeafModel:
+    return LeafModel(obs_mod.LogGaussianCox(), sde, FirstElement())
+
+
 def compose(m1: Model, m2: Model) -> ComposedModel:
     """``m1 |+| m2``: left-biased model composition (Model.scala:110-136)."""
     return ComposedModel(m1, m2)

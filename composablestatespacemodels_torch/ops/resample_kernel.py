@@ -4,8 +4,9 @@ resampling gather; K5 (+ K3), the standalone propagate with optional
 log-weights.
 
 Replaces ``composablestatespacemodels_tpu/ops/resample_kernel.py``'s
-``sorted_gather_resample_propagate_t`` (:667) and the Gaussian/Poisson
-``kernel_log_density`` hooks with the CUDA kernel in
+``sorted_gather_resample_propagate_t`` (:667) and the
+``kernel_log_density`` hooks of its seven pointwise observation families
+(K3, ``csrc/obs_density.cuh``) with the CUDA kernel in
 ``csrc/resample_propagate.cu``::
 
     anc_j   = first i with counts[i] > j
@@ -13,7 +14,11 @@ Replaces ``composablestatespacemodels_tpu/ops/resample_kernel.py``'s
     logw[j] = fn(sum_r design_r * y[r, j], consts)
 
 ``coef`` is ``[d, 4]`` with columns (a, b, sqrt(q), design); ``consts``
-the family's per-step constants; ``seed`` the per-step int32 Philox key.
+the family's per-step constants (``make_consts``, padded to
+``KERNEL_CONSTS``); ``family_id`` one of the ids of
+``models/observation.py`` (Gaussian 0, Poisson 1, ZeroInflatedPoisson 2,
+NegativeBinomial 3, Bernoulli 4, StudentsT 5, Beta 6); ``seed`` the
+per-step int32 Philox key.
 The log-weights are a separate ``[N]`` output (the TPU kernel wrote them
 into a spare padding row of the cloud, an alignment workaround).
 
@@ -57,13 +62,11 @@ _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 
 def _mulhilo32(a: torch.Tensor, m: int):
     """(high, low) 32-bit words of ``a * m`` for ``a`` in [0, 2^32): the
-    product is assembled from 16-bit halves so no int64 step overflows."""
-    a_lo, a_hi = a & 0xFFFF, a >> 16
-    m_lo, m_hi = m & 0xFFFF, m >> 16
-    mid = a_hi * m_lo + a_lo * m_hi                     # < 2^33
-    lo_full = a_lo * m_lo + ((mid & 0xFFFF) << 16)      # < 2^33
-    hi = (a_hi * m_hi + (mid >> 16) + (lo_full >> 32)) & _MASK32
-    return hi, lo_full & _MASK32
+    product is assembled from the 16-bit halves of ``m`` so no int64 step
+    overflows."""
+    p_lo, p_hi = a * (m & 0xFFFF), a * (m >> 16)        # < 2^48 each
+    s = p_lo + ((p_hi & 0xFFFF) << 16)                  # < 2^49
+    return ((p_hi >> 16) + (s >> 32)) & _MASK32, s & _MASK32
 
 
 def philox4x32_10(ctr, key):

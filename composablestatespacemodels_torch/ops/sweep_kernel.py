@@ -4,8 +4,9 @@ the likelihood of PMMH's fused tiers.
 Replaces ``composablestatespacemodels_tpu/ops/sweep_kernel.py``'s
 ``pf_sweep_chains`` (:358) with the CUDA kernel in ``csrc/sweep.cu``: one
 thread block per chain holds the cloud in shared memory and runs every
-step -- propagate with in-kernel Philox normals, the K3 weights with the
-step's constants for the chain (a masked step gets weight 0, a select and
+step -- propagate with in-kernel Philox normals, the K3 weights of any of
+the seven pointwise observation families with the step's constants for
+the chain (a masked step gets weight 0, a select and
 not a multiply), the max, the float64 sum and the ll increment
 ``max + log(total) - log(n)``, the systematic counts with their running
 max (the arithmetic of K1, ``csrc/scan.cuh``), the ancestors and the

@@ -58,26 +58,31 @@ class SimulatedData:
 def simulate(model, params, generator: torch.Generator, ts) -> SimulatedData:
     """Simulate a POMP model at the given times (Data.scala:64-100).
 
-    The first time draws the initial state; later times advance the exact
-    transition over ``dt = t_i - t_{i-1}``.  The transition coefficients
-    and the normals of every step are drawn in one batched pass, and the
-    observations of every step in one call after the latent path.
+    The first time draws the initial state; later times advance the
+    transition over ``dt = t_i - t_{i-1}``: the exact one with every
+    step's coefficients and normals drawn in one batched pass, or step by
+    step where an SDE has none (Euler-Maruyama).  The observations of every
+    step come from the family's sampler in one call after the latent path.
     """
     model.validate_params(params)
     device = generator.device
     params = params_to(params, device)
     ts = torch.as_tensor(ts, dtype=torch.float32).to(device)
     sp = model.sde_params(params)
-
-    a, b, q = model.sde.transition_coeffs(sp, ts[1:] - ts[:-1])
-    s = torch.sqrt(q)
     x = model.initial_state(params, generator)
-    z = torch.randn((ts.shape[0] - 1, model.dim), generator=generator,
-                    device=device)
     xs = [x]
-    for i in range(ts.shape[0] - 1):
-        x = a[i] * x + b[i] + s[i] * z[i]
-        xs.append(x)
+    if model.sde.exact:
+        a, b, q = model.sde.transition_coeffs(sp, ts[1:] - ts[:-1])
+        s = torch.sqrt(q)
+        z = torch.randn((ts.shape[0] - 1, model.dim), generator=generator,
+                        device=device)
+        for i in range(ts.shape[0] - 1):
+            x = a[i] * x + b[i] + s[i] * z[i]
+            xs.append(x)
+    else:
+        for i in range(ts.shape[0] - 1):
+            x = model.step(params, generator, x, ts[i + 1] - ts[i])
+            xs.append(x)
     xs = torch.stack(xs)
     gammas = (xs * model.design_vector(ts)).sum(dim=-1)
     ys = model.sample_obs(generator, params, gammas)

@@ -61,8 +61,37 @@ def seasonal_linear(pkg):
     return model, params
 
 
+def _family_case(make, scale, sde_params):
+    def build(pkg):
+        return make(pkg), pkg.parameters(scale, sde_params(pkg))
+    return build
+
+
+# the pointwise observation families with the parameters of
+# tests/test_families_end_to_end.py:14-42, one model per family
+FAMILY_CASES = {
+    "poisson": _family_case(lambda p: p.poisson(p.ou_process(1)), None,
+                            lambda p: p.ou_params(1.0, 0.3, 0.3, 1.0, 0.3)),
+    "linear": _family_case(lambda p: p.linear(p.brownian_motion(1)),
+                           np.log(0.5),
+                           lambda p: p.brownian_params(0.0, 1.0, 0.3)),
+    "bernoulli": _family_case(lambda p: p.bernoulli(p.ou_process(1)), None,
+                              lambda p: p.ou_params(0.0, 0.5, 0.3, 0.0, 0.5)),
+    "beta": _family_case(lambda p: p.beta(p.ou_process(1)), np.log(2.0),
+                         lambda p: p.ou_params(0.5, 0.2, 0.3, 0.5, 0.3)),
+    "students_t": _family_case(
+        lambda p: p.students_t(p.ou_process(1), df=5), np.log(0.4),
+        lambda p: p.ou_params(1.0, 0.3, 0.3, 1.0, 0.4)),
+    "negative_binomial": _family_case(
+        lambda p: p.negative_binomial(p.ou_process(1)), np.log(3.0),
+        lambda p: p.ou_params(1.0, 0.3, 0.3, 1.0, 0.3)),
+    "zero_inflated_poisson": _family_case(
+        lambda p: p.zero_inflated_poisson(p.ou_process(1)), 0.0,
+        lambda p: p.ou_params(1.0, 0.3, 0.3, 1.0, 0.3)),
+}
+
 MODELS = {"flagship": flagship, "oracle": oracle,
-          "seasonal_linear": seasonal_linear}
+          "seasonal_linear": seasonal_linear, **FAMILY_CASES}
 
 
 def both(name):
@@ -71,6 +100,20 @@ def both(name):
     jm, jp = MODELS[name](cj)
     tm, _ = MODELS[name](ct)
     return jm, jp, tm, ct.params_from_numpy(jax_params_to_numpy(jp))
+
+
+def drift_only_ou():
+    """An OU written with only ``drift`` and ``diffusion`` (no exact
+    transition, so it steps by Euler-Maruyama) in a linear-Gaussian model,
+    and its parameters."""
+    from composablestatespacemodels_torch.models import sde
+
+    class DriftOnlyOu(sde.Ou):
+        transition_coeffs = sde.Sde.transition_coeffs
+
+    model = ct.linear(DriftOnlyOu(1))
+    return model, ct.parameters(np.log(0.5),
+                                ct.ou_params(0.5, 0.2, 0.3, 0.5, 0.3))
 
 
 def to_torch_series(ts, ys, mask):

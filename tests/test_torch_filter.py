@@ -65,7 +65,8 @@ def test_matches_kalman_oracle(model):
 def test_all_missing_gives_zero_ll():
     _, _, tm, tp = both("flagship")
     series = to_torch_series(np.arange(12.0), np.zeros(12), np.zeros(12, bool))
-    res = ct.bootstrap_filter(tm, tp, series, 1024, torch.Generator())
+    res = ct.bootstrap_filter(tm, tp, series, 1024, torch.Generator(),
+                              resample="systematic-fused")
     assert float(res.ll) == 0.0
     assert (res.ess.numpy() == 1024).all()
     assert res.final_particles.shape == (1024, tm.dim)
@@ -76,7 +77,8 @@ def test_knocked_out_stretch_runs():
     data = cj.simulate_regular(jm, jp, jax.random.PRNGKey(2), 30,
                                dt=1.0).to_timeseries()
     series = to_torch_series(data.ts, data.ys, data.mask).knock_out(8.0, 15.0)
-    res = ct.bootstrap_filter(tm, tp, series, 2048, torch.Generator())
+    res = ct.bootstrap_filter(tm, tp, series, 2048, torch.Generator(),
+                              resample="systematic-fused")
     hist = res.ll_history.numpy()
     assert np.isfinite(hist).all() and res.ll == hist[-1]
     missing = ~series.mask.numpy()
@@ -96,7 +98,8 @@ def test_initial_state(init):
     x0 = (torch.tensor([0.3]) if init == "fixed"
           else torch.randn(512, 1, generator=torch.Generator()))
     res = ct.bootstrap_filter(tm, tp, series, 512, torch.Generator(),
-                              initial_state=x0, t0=-0.5)
+                              initial_state=x0, t0=-0.5,
+                              resample="systematic-fused")
     assert math.isfinite(float(res.ll))
     assert res.final_particles.shape == (512, 1)
 
@@ -107,11 +110,17 @@ def test_initial_state(init):
     {"resample": "identity"},
 ])
 def test_unported_options_raise(kwargs):
-    """The generic [N, d] schemes are still to port."""
+    """Every generic scheme runs; what stays unsupported under each, as in
+    the JAX package, raises: the log-Gaussian Cox process has no pointwise
+    likelihood."""
     _, _, tm, tp = both("oracle")
     series = to_torch_series(np.arange(4.0), np.ones(4), np.ones(4, bool))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ct.bootstrap_filter(tm, tp, series, 256, torch.Generator(), **kwargs)
+    res = ct.bootstrap_filter(tm, tp, series, 256, torch.Generator(), **kwargs)
+    assert math.isfinite(float(res.ll))
+    lgcp = ct.lgcp(ct.brownian_motion(1))
+    with pytest.raises(NotImplementedError, match="no pointwise likelihood"):
+        ct.bootstrap_filter(lgcp, tp, series, 256, torch.Generator(),
+                            **kwargs)
 
 
 def test_simulate_regular_shapes():
