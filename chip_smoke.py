@@ -30,9 +30,14 @@ the fused summary filter, against the generic ``"systematic"`` route; the
 ``"systematic"``, ``"stratified"``, ``"multinomial"`` and ``"residual"``
 schemes against Kalman; ``forecast_times``; fused PMMH for the negative
 binomial; and one PyTorch call per kernel function where one exists.
+K2 is held to its plain version on the counts of four weight regimes and
+of two spikes, at N = 100, 2^20 and 2^20 + 5, and timed on each; K7a bit
+for bit from N = 1 to 2^22 + 3 and over 200 back-to-back calls.  Last,
+each kernel's device time per call from ``torch.profiler``.
 Every check raises on failure.  Prints one line per phase, then a JSON
 line of per-kernel results (with each kernel's bound from this run's
-shapes), and last ``{"ok": true, "device": {...}}``.
+shapes, ``ms`` the back-to-back time per call and ``device_ms`` the
+profiler's), and last ``{"ok": true, "device": {...}}``.
 Needs one CUDA device; without one it exits non-zero and prints no result.
 """
 
@@ -97,6 +102,35 @@ def _ulps(a, b) -> int:
     return int((ma - mb).abs().max())
 
 
+def _ptxas_summary(log_lines) -> list:
+    """``name<template args>: R regs, S B spills`` for every kernel in a
+    build log of ``nvcc -Xptxas -v`` (names read from the mangled ones)."""
+    import re
+    out, name, spill = [], None, 0
+    for ln in log_lines:
+        m = re.search(r"Compiling entry function '(_Z\w+)'", ln)
+        if m:
+            mangled = m.group(1)
+            k = re.match(r"_Z(?:N4cssm)?(\d+)", mangled)
+            start = k.end()
+            name = mangled[start:start + int(k.group(1))]
+            t = re.match(r"I((?:Li\d+E)+)E",
+                         mangled[start + int(k.group(1)):])
+            if t:
+                args = re.findall(r"Li(\d+)E", t.group(1))
+                name += "<" + ",".join(args) + ">"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, {spill} B spills")
+            name, spill = None, 0
+    return out
+
+
 def _device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -118,6 +152,50 @@ def _cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _profile(fn, iters: int = 20, expect=None):
+    """``(device ms per call, CUDA kernels per call, their names)`` of
+    ``fn()`` from ``torch.profiler``: the device time of every CUDA kernel
+    that ``iters`` calls launched, summed and divided by ``iters``; None
+    for the time when the profiler saw no device activity.  With
+    ``expect`` (the kernels one call launches), a window that saw another
+    count is taken again, up to three windows in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if expect is None or len(kernels) == expect * iters:
+            break
+    if not kernels:
+        return None, 0.0, []
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    return us / iters / 1e3, len(kernels) / iters, sorted(
+        {e.name for e in kernels})
+
+
+def _host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn()`` over ``calls`` calls made
+    back to back with no synchronisation (the device's queue absorbs
+    them), after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
 
 
 def _weights(regime: str, n: int, gen, dev):
@@ -178,8 +256,33 @@ def phase_counts(gen, dev, n: int):
     return max_err, keep
 
 
-def phase_resample(gen, dev, counts, n: int, d: int = 7):
-    """[4] K2 (+K3) against its plain version, identical counts and seed."""
+# the counts K2 is held and timed on: K1's on the four weight regimes, and
+# two spikes at 0 and N - 1 with N - 2 zero-offspring particles between
+K2_REGIMES = ("uniform", "mild", "heavy", "degenerate", "spikes")
+
+
+def _regime_counts(regime: str, n: int, gen, dev):
+    import torch
+
+    from composablestatespacemodels_torch.ops.scan_kernel import (
+        systematic_counts_fused)
+
+    if regime == "spikes":
+        c = torch.full((n,), n // 2, dtype=torch.int32, device=dev)
+        c[-1] = n
+        return c
+    w = _weights(regime, n, gen, dev)
+    return systematic_counts_fused(
+        w, w.sum(), torch.rand((), generator=gen, device=dev))
+
+
+def phase_resample(gen, dev):
+    """[4] K2 (+K3) against its plain version, identical counts and seed,
+    on the counts of every K2 regime at d = 7 and N = 100, 2^20 and
+    2^20 + 5, and at d = 13 (rows past K2's eight preloaded ones) on the
+    mild and spike counts at N = 100 and 2^20 + 5; with s = 0, y bit for
+    bit a*x[:, anc] + b.  Returns the largest error, the mild Poisson case
+    at d = 7, N = 2^20 and every regime's counts there."""
     import torch
 
     from composablestatespacemodels_torch.inference.resampling import (
@@ -189,43 +292,57 @@ def phase_resample(gen, dev, counts, n: int, d: int = 7):
     from composablestatespacemodels_torch.ops.resample_kernel import (
         resample_propagate, resample_propagate_ref)
 
-    x = torch.randn((d, n), generator=gen, device=dev) * 0.3
-    a = 0.5 + 0.5 * torch.rand(d, generator=gen, device=dev)
-    b = 0.1 * torch.randn(d, generator=gen, device=dev)
-    design = 0.5 + torch.rand(d, generator=gen, device=dev)
-    seed = torch.tensor(123456789, dtype=torch.int32, device=dev)
-    anc = _ancestors_from_counts(counts, n).long()
-    max_err, lines, keep = 0.0, [], None
-    for fam, yobs, scale in ((Poisson(), 3.0, 1.0), (Gaussian(), 0.7, 0.4)):
-        make_consts, fid = fam.kernel_log_density()
-        consts = torch.zeros(KERNEL_CONSTS, device=dev)
-        c = make_consts(torch.tensor(yobs, device=dev),
-                        torch.tensor(scale, device=dev))
-        consts[:c.shape[-1]] = c
-        for s_val in (0.0, 0.3):
-            s = torch.full((d,), s_val, device=dev)
-            coef = torch.stack([a, b, s, design], dim=1).contiguous()
-            yk, lk = resample_propagate(x, counts, coef, consts, seed, fid)
-            yp, lp = resample_propagate_ref(x, counts, coef, consts, seed, fid)
-            torch.cuda.synchronize()
-            if s_val == 0.0:
-                if not torch.equal(yk, a[:, None] * x[:, anc] + b[:, None]):
-                    raise AssertionError(f"K2 {type(fam).__name__} s=0: y is "
-                                         "not a*x[:, anc] + b bit for bit")
-            else:
-                torch.testing.assert_close(yk, yp, rtol=1e-5, atol=1e-6)
-            torch.testing.assert_close(lk, lp, rtol=2e-5, atol=1e-5)
-            ey = float((yk - yp).abs().max())
-            el = float((lk - lp).abs().max())
-            max_err = max(max_err, ey, el)
-            lines.append(f"{type(fam).__name__}/s={s_val}: y {ey:.3g} "
-                         f"logw {el:.3g}")
-            if isinstance(fam, Poisson) and s_val:
-                keep = (x, counts, coef, consts, seed, fid)
-    print(f"[4] K2+K3 vs plain at d={d} N={n}: max abs err "
-          f"{'; '.join(lines)}; s=0 bit-exact to a*x[:, anc] + b",
-          flush=True)
-    return max_err, keep
+    max_err, cases, keep, regime_counts = 0.0, 0, None, {}
+    wide = ("mild", "spikes")
+    for d, n, regimes in ((7, N_PMMH, K2_REGIMES), (7, N_MAIN, K2_REGIMES),
+                          (7, N_MAIN + 5, K2_REGIMES), (13, N_PMMH, wide),
+                          (13, N_MAIN + 5, wide)):
+        x = torch.randn((d, n), generator=gen, device=dev) * 0.3
+        a = 0.5 + 0.5 * torch.rand(d, generator=gen, device=dev)
+        b = 0.1 * torch.randn(d, generator=gen, device=dev)
+        design = 0.5 + torch.rand(d, generator=gen, device=dev)
+        seed = torch.tensor(123456789, dtype=torch.int32, device=dev)
+        for regime in regimes:
+            counts = _regime_counts(regime, n, gen, dev)
+            if n == N_MAIN:
+                regime_counts[regime] = counts
+            anc = _ancestors_from_counts(counts, n).long()
+            for fam, yobs, scale in ((Poisson(), 3.0, 1.0),
+                                     (Gaussian(), 0.7, 0.4)):
+                make_consts, fid = fam.kernel_log_density()
+                consts = torch.zeros(KERNEL_CONSTS, device=dev)
+                c = make_consts(torch.tensor(yobs, device=dev),
+                                torch.tensor(scale, device=dev))
+                consts[:c.shape[-1]] = c
+                for s_val in (0.0, 0.3):
+                    s = torch.full((d,), s_val, device=dev)
+                    coef = torch.stack([a, b, s, design], dim=1).contiguous()
+                    args = (x, counts, coef, consts, seed, fid)
+                    yk, lk = resample_propagate(*args)
+                    yp, lp = resample_propagate_ref(*args)
+                    torch.cuda.synchronize()
+                    what = (f"K2 {type(fam).__name__} {regime} d={d} N={n} "
+                            f"s={s_val}")
+                    if s_val == 0.0 and not torch.equal(
+                            yk, a[:, None] * x[:, anc] + b[:, None]):
+                        raise AssertionError(f"{what}: y is not "
+                                             "a*x[:, anc] + b bit for bit")
+                    torch.testing.assert_close(yk, yp, rtol=1e-5, atol=1e-6,
+                                               msg=what)
+                    torch.testing.assert_close(lk, lp, rtol=2e-5, atol=1e-5,
+                                               msg=what)
+                    max_err = max(max_err, float((yk - yp).abs().max()),
+                                  float((lk - lp).abs().max()))
+                    cases += 1
+                    if (n == N_MAIN and regime == "mild"
+                            and isinstance(fam, Poisson) and s_val):
+                        keep = args
+    print(f"[4] K2+K3 vs plain at d=7, N in {{{N_PMMH}, {N_MAIN}, "
+          f"{N_MAIN + 5}}} on the counts of {', '.join(K2_REGIMES)}, and at "
+          f"d=13, N in {{{N_PMMH}, {N_MAIN + 5}}} on {', '.join(wide)} "
+          f"(Poisson and Gaussian, s in {{0, 0.3}}; {cases} cases): max abs "
+          f"err {max_err:.3g}; s=0 bit-exact to a*x[:, anc] + b", flush=True)
+    return max_err, keep, regime_counts
 
 
 def flagship():
@@ -297,6 +414,41 @@ def phase_main(dev, device_line: str):
     return launches
 
 
+def phase_main_device(dev):
+    """[28] the device time per step of phase 5's path: every CUDA kernel
+    of one more fused log_likelihood run under torch.profiler, by name
+    (last, since a window of ~25,000 kernels can cost later windows
+    records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import composablestatespacemodels_torch as ct
+
+    model, params = flagship()
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_MAIN, dt=1.0).to_timeseries()
+    gen = torch.Generator(device=dev).manual_seed(104)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(ct.log_likelihood(model, params, data, N_MAIN, gen,
+                                resample="systematic-fused"))
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), k + 1)
+    dev_us = sum(t for t, _ in by_name.values()) / T_MAIN
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    print(f"[28] flagship log_likelihood d={model.dim} N={N_MAIN} "
+          f"T={T_MAIN}, device time (torch.profiler, one run): "
+          f"{dev_us:.1f} us/step in "
+          f"{sum(k for _, k in by_name.values()) / T_MAIN:.1f} kernels/step;"
+          " largest " + ", ".join(f"{name[:40]} {t / T_MAIN:.1f} us/step"
+                                  for name, (t, _) in top), flush=True)
+    return dev_us
+
+
 def phase_oracle(dev):
     """[6] fused filter (Gaussian K3) against the Kalman oracle."""
     import torch
@@ -323,8 +475,23 @@ def phase_oracle(dev):
                              "by more than 4 standard errors")
 
 
-def phase_timing(counts_in, prop_in):
-    """[7] each kernel alone against its plain version at N = 2^20."""
+def _time_k2_regimes(prop_in, regime_counts):
+    """K2 alone (100 back-to-back calls, the better of two) on the counts of
+    every K2 regime, the other inputs those of the mild case."""
+    from composablestatespacemodels_torch.ops.resample_kernel import (
+        resample_propagate)
+
+    x, _, coef, consts, seed, fid = prop_in
+    out = {}
+    for regime, counts in regime_counts.items():
+        out[regime] = min(_cuda_ms(lambda: resample_propagate(
+            x, counts, coef, consts, seed, fid), 100) for _ in range(2))
+    return out
+
+
+def phase_timing(counts_in, prop_in, regime_counts):
+    """[7] each kernel alone against its plain version at N = 2^20; K2 on
+    every regime's counts."""
     from composablestatespacemodels_torch.ops.resample_kernel import (
         resample_propagate, resample_propagate_ref)
     from composablestatespacemodels_torch.ops.scan_kernel import (
@@ -341,10 +508,13 @@ def phase_timing(counts_in, prop_in):
         k2 = _cuda_ms(lambda: kern(*args), 100)
         p2 = _cuda_ms(lambda: ref(*args), 10)
         times[name] = (min(k1, k2), min(p1, p2))
+    k2_regimes = _time_k2_regimes(prop_in, regime_counts)
     print(f"[7] kernel alone vs plain at N={N_MAIN}: "
           + "; ".join(f"{k} {v[0]:.4f} ms vs {v[1]:.4f} ms"
-                      for k, v in times.items()), flush=True)
-    return times
+                      for k, v in times.items())
+          + "; K2 by counts regime: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in k2_regimes.items()), flush=True)
+    return times, k2_regimes
 
 
 def _counters():
@@ -447,42 +617,67 @@ def phase_propagate(gen, dev, n: int, d: int = 7):
     return max_err, keep
 
 
+# K7a's sizes in phase 10: one element, a tile and one, the oracle's and
+# the main path's N, and more than 1024 tiles (each thread of the offset sum
+# then adds two tile sums); and its repeated calls at N = 2^20
+K7A_SIZES = (1, 4097, 2 ** 18, 2 ** 20, 2 ** 22 + 3)
+K7A_REPEATS = 200
+
+
 def phase_scans(gen, dev, n: int):
-    """[10] K7a and K7b against their plain versions; the stratified counts
-    built by the kernels against the plain composition."""
+    """[10] K7a against its plain version bit for bit at every K7A_SIZES
+    size in four weight regimes, on a view whose data is not 16-byte
+    aligned, and over K7A_REPEATS calls at N = 2^20 on distinct inputs,
+    launched back to back before any is compared (a tile sum read before
+    its flag would show as a difference); K7b and the kernel-built
+    stratified counts against theirs at N = 2^20."""
     import torch
 
     from composablestatespacemodels_torch.inference import resampling as rs
     from composablestatespacemodels_torch.ops.scan_kernel import (
         cummax_int32, cummax_int32_ref, prefix_sum, prefix_sum_ref)
 
+    def same(what, k, p):
+        if not torch.equal(k, p):
+            raise AssertionError(f"{what}: {int((k != p).sum())} entries "
+                                 "differ from the plain version")
+
+    for size in K7A_SIZES:
+        for regime in ("uniform", "mild", "heavy", "degenerate"):
+            w = _weights(regime, size, gen, dev)
+            same(f"K7a {regime} N={size}", prefix_sum(w), prefix_sum_ref(w))
+    buf = torch.randn(n + 1, generator=gen, device=dev)
+    same("K7a on a misaligned view", prefix_sum(buf[1:]),
+         prefix_sum_ref(buf[1:]))
+    ins = [torch.rand(n, generator=gen, device=dev) - 0.25
+           for _ in range(K7A_REPEATS)]
+    outs = [prefix_sum(w) for w in ins]
+    for r, (w, o) in enumerate(zip(ins, outs)):
+        same(f"K7a repeat {r}", o, prefix_sum_ref(w))
+    del ins, outs
     keep = None
     for regime in ("uniform", "mild", "heavy", "degenerate"):
         w = _weights(regime, n, gen, dev)
-        pk, pp = prefix_sum(w), prefix_sum_ref(w)
         c = torch.randint(-1000, n, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
-        ck, cp = cummax_int32(c), cummax_int32_ref(c)
         u = torch.rand(n, generator=gen, device=dev)
         sk = rs.stratified_counts(w, u)
         sp = torch.cummax(rs._stratified_from_cdf(
             rs._cumsum_ref(w / w.sum()), u, n), dim=0).values
-        torch.cuda.synchronize()
-        for name, k, p in (("K7a prefix_sum", pk, pp),
-                           ("K7b cummax_int32", ck, cp),
-                           ("stratified counts", sk, sp)):
-            if not torch.equal(k, p):
-                bad = int((k != p).sum())
-                raise AssertionError(f"{name} {regime}: {bad} entries differ "
-                                     "from the plain version")
+        same(f"K7b cummax_int32 {regime}", cummax_int32(c),
+             cummax_int32_ref(c))
+        same(f"stratified counts {regime}", sk, sp)
         if not bool((torch.diff(sk) >= 0).all()) or int(sk[-1]) != n:
             raise AssertionError(f"stratified counts {regime}: not monotone "
                                  "with counts[-1] == N")
         if regime == "heavy":
             keep = (w, c)
-    print(f"[10] K7a prefix_sum, K7b cummax_int32 and the kernel-built "
-          f"stratified counts vs plain at N={n}: bit-equal in four weight "
-          "regimes", flush=True)
+    print(f"[10] K7a prefix_sum vs plain: bit-equal at N in {K7A_SIZES} in "
+          "the uniform, mild, heavy and degenerate regimes, on a misaligned "
+          f"view, and over {K7A_REPEATS} back-to-back calls at N={n} on "
+          "distinct inputs; K7b cummax_int32 and the kernel-built stratified "
+          f"counts vs plain at N={n}: bit-equal in four weight regimes",
+          flush=True)
     return 0.0, keep
 
 
@@ -690,8 +885,9 @@ def phase_ess_sync(dev, pairs: int = 6):
     return med
 
 
-def phase_timing_new(gather_in, prop_in, scan_in):
-    """[15] each new kernel alone against its plain version at N = 2^20."""
+def phase_timing_new(gather_in, prop_in, scan_in, k2_in, regime_counts):
+    """[15] each slice-2 kernel alone against its plain version at
+    N = 2^20; K2 again on every regime's counts."""
     from composablestatespacemodels_torch.ops.resample_kernel import (
         propagate_weights_t, propagate_weights_t_ref,
         sorted_gather_resample_t, sorted_gather_resample_t_ref)
@@ -711,10 +907,13 @@ def phase_timing_new(gather_in, prop_in, scan_in):
         k2 = _cuda_ms(lambda: kern(*args), 100)
         p2 = _cuda_ms(lambda: ref(*args), 10)
         times[name] = (min(k1, k2), min(p1, p2))
+    k2_regimes = _time_k2_regimes(k2_in, regime_counts)
     print(f"[15] kernel alone vs plain at N={N_MAIN}: "
           + "; ".join(f"{k} {v[0]:.4f} ms vs {v[1]:.4f} ms"
-                      for k, v in times.items()), flush=True)
-    return times
+                      for k, v in times.items())
+          + "; K2 by counts regime: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in k2_regimes.items()), flush=True)
+    return times, k2_regimes
 
 
 def phase_counts_batched(gen, dev):
@@ -1106,7 +1305,8 @@ def phase_k3(gen, dev, counts, n: int = N_MAIN, d: int = 7):
         times = {"K2": _cuda_ms(lambda: resample_propagate(*k2_in), 100),
                  "K5": _cuda_ms(lambda: propagate_weights_t(*k5_in), 100),
                  "K5 plain": _cuda_ms(
-                     lambda: propagate_weights_t_ref(*k5_in), 3)}
+                     lambda: propagate_weights_t_ref(*k5_in), 3),
+                 "K5 args": k5_in}
         out[name] = {"err": err, "ulps": ulps, **times}
         if max(ulps.values()) > K3_ULPS[name]:
             bad.append(name)
@@ -1426,6 +1626,63 @@ def phase_library(gather_in, scan_in):
     return times
 
 
+# CUDA kernels one call of each wrapper launches at its timing inputs (K1
+# and K7b at N = 2^20: a carry pass; K6 batched at N = 100: one tile)
+KERNELS_PER_CALL = {"K1": 3, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 2,
+                    "K6b": 2, "K8": 1}
+
+
+def phase_device(inputs, scan_w, k3):
+    """[27] each kernel's device time per call from torch.profiler (the sum
+    of its CUDA kernels' times, so a row whose back-to-back ``ms`` is bound
+    by the host shows it) and its CUDA kernels per call, on the inputs it is
+    timed on; for K7a and ``torch.cumsum`` also the host microseconds per
+    call, 1000 calls with no synchronisation."""
+    import torch
+
+    from composablestatespacemodels_torch.ops.resample_kernel import (
+        propagate_weights_t, resample_propagate, sorted_gather_resample_t)
+    from composablestatespacemodels_torch.ops.scan_kernel import (
+        cummax_int32, prefix_sum, systematic_counts_batched,
+        systematic_counts_fused)
+    from composablestatespacemodels_torch.ops.sweep_kernel import (
+        pf_sweep_chains)
+
+    fns = {"K1": systematic_counts_fused, "K2": resample_propagate,
+           "K4": sorted_gather_resample_t, "K5": propagate_weights_t,
+           "K7a": prefix_sum, "K7b": cummax_int32,
+           "K6b": systematic_counts_batched, "K8": pf_sweep_chains}
+    out = {}
+    for key, fn in fns.items():
+        args = inputs[key]
+        ms, per_call, names = _profile(lambda: fn(*args),
+                                       5 if key == "K8" else 20,
+                                       KERNELS_PER_CALL[key])
+        out[key] = {"device_ms": ms, "device_kernels_per_call": per_call,
+                    "device_kernels": names}
+    k3_device = {name: _profile(lambda: propagate_weights_t(*v["K5 args"]),
+                                20, 1)[0] for name, v in k3.items()}
+    cum = _profile(lambda: torch.cumsum(scan_w, 0))
+    out["K7a"].update(
+        host_us_per_call=_host_us(lambda: prefix_sum(scan_w)),
+        library_host_us_per_call=_host_us(lambda: torch.cumsum(scan_w, 0)),
+        library_device_ms=cum[0], library_device_kernels_per_call=cum[1])
+    print("[27] device time per call (torch.profiler, summed over the call's "
+          "CUDA kernels): " + "; ".join(
+              f"{k} {v['device_ms']} ms in {v['device_kernels_per_call']:g} "
+              f"kernels ({', '.join(n[:32] for n in v['device_kernels'])})"
+              for k, v in out.items())
+          + f"; torch.cumsum {cum[0]} ms in {cum[1]:g} kernels; host per "
+          f"call (1000 calls, no sync): K7a "
+          f"{out['K7a']['host_us_per_call']:.2f} us, torch.cumsum "
+          f"{out['K7a']['library_host_us_per_call']:.2f} us", flush=True)
+    if out["K7a"]["device_kernels_per_call"] not in (0.0, 1.0):
+        raise AssertionError("K7a launched "
+                             f"{out['K7a']['device_kernels_per_call']} CUDA "
+                             "kernels per call, expected 1")
+    return out, k3_device
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1442,18 +1699,18 @@ def main() -> int:
     t0 = time.perf_counter()
     path = _build.build()
     _build.lib()
-    log = (path.parent / "build.log").read_text().splitlines()
-    ptxas = [ln.strip() for ln in log if "registers" in ln or "spill" in ln]
+    ptxas = _ptxas_summary((path.parent / "build.log").read_text()
+                           .splitlines())
     print(f"[2] built {path.relative_to(_build.BUILD_ROOT.parent.parent)} in "
           f"{time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}",
           flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     k1_err, counts_in = phase_counts(gen, dev, N_MAIN)
-    k2_err, prop_in = phase_resample(gen, dev, counts_in[3], N_MAIN)
+    k2_err, prop_in, regime_counts = phase_resample(gen, dev)
     launches = phase_main(dev, device_line)
     phase_oracle(dev)
-    times = phase_timing(counts_in[:3], prop_in)
+    times, k2_regimes = phase_timing(counts_in[:3], prop_in, regime_counts)
     k4_err, gather_in = phase_gather(gen, dev, N_MAIN)
     k5_err, prop5_in = phase_propagate(gen, dev, N_MAIN)
     k7_err, scan_in = phase_scans(gen, dev, N_MAIN)
@@ -1461,7 +1718,9 @@ def main() -> int:
     strat_launches = phase_oracle_summary(dev)
     phase_selection(gen, dev, N_MAIN)
     phase_ess_sync(dev)
-    times.update(phase_timing_new(gather_in, prop5_in, scan_in))
+    new_times, k2_regimes_15 = phase_timing_new(gather_in, prop5_in, scan_in,
+                                                prop_in, regime_counts)
+    times.update(new_times)
     # K1 and K4 at the single PMMH tier's shapes, [N_PMMH] and [7, N_PMMH]
     k1_err = max(k1_err, phase_counts(gen, dev, N_PMMH)[0])
     k4_err = max(k4_err, phase_gather(gen, dev, N_PMMH)[0])
@@ -1478,6 +1737,11 @@ def main() -> int:
     phase_forecast(dev, clouds, kf)
     nb_k8 = phase_pmmh_family(dev, device_line)
     library = phase_library(gather_in, scan_in)
+    device, k3_device = phase_device(
+        {"K1": counts_in[:3], "K2": prop_in, "K4": gather_in,
+         "K5": prop5_in, "K7a": (scan_in[0],), "K7b": (scan_in[1],),
+         "K6b": counts_b_in, "K8": sweep_in}, scan_in[0], k3)
+    phase_main_device(dev)
 
     # bound_ms from this run's inputs: each input read once, each output
     # written once; operations counted per element as noted beside each
@@ -1489,7 +1753,8 @@ def main() -> int:
     k6b_rows, k6b_n = counts_b_in[0].shape
     bounds = {
         "K1": _bound(8 * n, 8 * n),        # read w, write counts
-        "K2": _bound(4 * (2 * d * n + 2 * n), n * (per_col + 2 * log_n)),
+        # K2's ancestors by a merge: 2n merged positions, ~2 ops each
+        "K2": _bound(4 * (2 * d * n + 2 * n), n * (per_col + 4)),
         "K4": _bound(4 * (2 * d * n + n), n * 2 * log_n),
         "K5": _bound(4 * (2 * d * n + n), n * per_col),
         "K7a": _bound(8 * n, 2 * n),
@@ -1508,13 +1773,18 @@ def main() -> int:
     fams = "all seven pointwise families"
     fused = summary_launches["systematic-pallas-fused"]
 
-    def entry(key, name, source, replaces, launches, err, ms, plain_ms):
+    def entry(key, name, source, replaces, launches, err, ms, plain_ms,
+              device_ms=None):
         bound_ms, bound_by = bounds[key]
+        extra = {k: v for k, v in device[key].items()
+                 if k != "device_kernels"}
+        if device_ms is not None:
+            extra["device_ms"] = device_ms
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library.get(key)}
+                "library_ms": library.get(key), **extra}
 
     kernels = [
         entry("K1", "K1 systematic_counts_fused", "counts.cu",
@@ -1561,7 +1831,9 @@ def main() -> int:
             f"{hooks[name]}",
             fl["K2"] + fl["K5"] + (nb_k8 if name == "NegativeBinomial"
                                    else 0),
-            max(v["err"].values()), v["K5"], v["K5 plain"]))
+            max(v["err"].values()), v["K5"], v["K5 plain"], k3_device[name]))
+    kernels[1]["ms_by_counts_regime"] = {
+        k: [v, k2_regimes_15[k]] for k, v in k2_regimes.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

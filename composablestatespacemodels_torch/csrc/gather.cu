@@ -18,7 +18,8 @@
 // 3.35 TB/s.  Neighbouring threads write neighbouring addresses; their reads
 // are neighbouring too except across a heavy ancestor, whose column many
 // threads read at once (one transaction).  The ~20-probe search is the
-// latency this simple version pays; a streaming merge is later work.
+// latency this simple version pays; K2's merge path (ancestor.cuh) is the
+// routine that replaces it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -10,14 +10,21 @@
 //   K7a: out[i] = float32(sum_{k <= i} x[k])   accumulated in float64
 //   K7b: out[i] = max_{k <= i} c[k]            exact
 //
-// Both are the tile scan of scan.cuh, which K1 (counts.cu) uses too, so
-// every prefix of the port has one implementation; the plain versions
+// Both use the tile scan of scan.cuh, which K1 (counts.cu) uses too, so
+// every prefix of the port adds in one order; the plain versions
 // (inference/resampling.py::_cumsum_ref, torch.cummax) agree bit for bit.
 // The TPU computes the prefix as blocked float32 matmuls on the MXU; here it
 // is a float64 scan, which rounds once per entry.
 //
 // What bounds them on the H100: memory, 4 MiB in and 4 MiB out at N = 2^20
-// (~2.5 us at 3.35 TB/s); at that size the two or three launches cost more.
+// (~2.5 us at 3.35 TB/s), and below ~10 us the launch and the host.  K7a
+// is one launch (scan.cuh's take_tile .. finish_tile): each block loads its
+// 4096 floats once, as one 16-byte load per thread where the address is
+// 16-byte aligned (scalar loads otherwise, in the same kernel), publishes
+// the tile's sum, adds the sums of the tiles before it in the three-pass
+// order and writes its prefix once.  Its flags and tile sums live in a
+// workspace that the wrapper keeps per device and stream, so a call
+// allocates only its output.  K7b keeps two launches (scan, then carry).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,28 +32,54 @@
 
 namespace cssm {
 
-struct Identity {
-  const float* x;
-  int64_t n;
-  __device__ __forceinline__ Identity row(int r) const {
-    return {x + (int64_t)r * n, n};
-  }
-  __device__ __forceinline__ float operator()(int64_t i) const {
-    return __ldg(x + i);
-  }
-};
-
+// The one-launch prefix sum: see scan.cuh's one-launch scan for the
+// workspace, tickets and flags.
 __global__ void __launch_bounds__(kThreads)
-    prefix_scan(Identity load, const double* __restrict__ bsum,
-                float* __restrict__ out, int64_t n) {
+    prefix_scan(const float* __restrict__ x, float* __restrict__ out,
+                int64_t n, ScanWorkspace ws, unsigned long long epoch,
+                unsigned long long tiles) {
   __shared__ double dsm[kWarps];
-  float p[kItems];
-  tile_prefix(load, bsum, n, blockIdx.x, p, dsm);
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kItems;
+  __shared__ unsigned long long slot;
+  const int64_t b = take_tile(ws, &slot);
+  const int64_t base = b * kTile + threadIdx.x * kItems;
+  const bool whole = base + kItems <= n;
+  float v[kItems];
+  if (whole && ((uintptr_t)x & 15) == 0) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(x + base));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      v[k] = base + k < n ? __ldg(x + base + k) : 0.f;
+    }
+  }
+  // thread_sum's order; the items past n add 0.0, which changes no sum
+  double tsum = 0.0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) tsum += (double)v[k];
+  const double offset =
+      publish_and_offset(ws, epoch, b, block_sum(tsum, dsm), dsm);
+  // tile_prefix's order: the offset, the tile's exclusive scan, the items
+  double p = offset + block_exclusive_sum(tsum, dsm);
+  float o[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    if (base + k < n) out[base + k] = p[k];
+    p += (double)v[k];
+    o[k] = __double2float_rn(p);
   }
+  if (whole && ((uintptr_t)out & 15) == 0) {
+    *reinterpret_cast<float4*>(out + base) =
+        make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (base + k < n) out[base + k] = o[k];
+    }
+  }
+  finish_tile(ws, tiles);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -64,17 +97,24 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace cssm
 
-extern "C" int cssm_prefix_sum(const void* x, void* out, void* bsum,
-                               int64_t n, int device, void* stream) {
+// ws: 2 + 2 * tiles 64-bit words (ticket, done, then a flag and a sum per
+// tile), zeroed when it was made; epoch: a value this workspace has not
+// seen, never 0.  Sets the device only when it is not the current one.
+extern "C" int cssm_prefix_sum(const void* x, void* out, void* ws, int64_t n,
+                               unsigned long long epoch, int device,
+                               void* stream) {
   using namespace cssm;
-  cudaError_t err = cudaSetDevice(device);
+  int current;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((n + kTile - 1) / kTile);
-  cudaStream_t s = (cudaStream_t)stream;
-  const Identity load{(const float*)x, n};
-  tile_sums<<<blocks, kThreads, 0, s>>>(load, (double*)bsum, n);
-  prefix_scan<<<blocks, kThreads, 0, s>>>(load, (const double*)bsum,
-                                          (float*)out, n);
+  if (n <= 0 || epoch == 0) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  auto* words = (unsigned long long*)ws;
+  const ScanWorkspace w{words, words + 1, (ScanTile*)(words + 2)};
+  prefix_scan<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)out, n, w, epoch,
+      (unsigned long long)tiles);
   return (int)cudaGetLastError();
 }
 

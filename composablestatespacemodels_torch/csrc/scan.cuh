@@ -8,15 +8,20 @@
 // share this header: a fixed tile of kThreads x kItems elements, a float64
 // prefix rounded to float32 per entry, and an exact int32 running max.  The
 // TPU walks its grid in order and carries the prefix and the running max in
-// SMEM; Hopper blocks run in parallel, so a scan is three passes:
+// SMEM; Hopper blocks run in parallel.  K1, K6 batched and K7b scan in
+// passes:
 //   1. tile_sums: each tile's float64 sum;
 //   2. tile_prefix (+ tile_cummax_store): each tile adds up the sums of the
 //      tiles before it, scans its own elements and, for the running max,
 //      writes its values maxed within the tile and its tile maximum;
 //   3. cummax_carry: each tile takes the maximum of the tiles before it and
 //      raises its values to it (left after one read when nothing crosses).
+// K7a scans in one launch (take_tile .. finish_tile below): a block takes
+// its tile from a ticket counter, publishes the tile's sum with a flag,
+// waits for the flags of the tiles before it and adds their sums in pass
+// 2's order, so the input is read once and the bits are the passes' bits.
 // Every float64 addition has a fixed association order (warp shuffles in a
-// fixed tree, no atomics), which the plain PyTorch version
+// fixed tree, no atomics in the sums), which the plain PyTorch version
 // (inference/resampling.py::_cumsum_ref) replays: kernel and plain version
 // agree bit for bit.
 //
@@ -219,6 +224,98 @@ __device__ __forceinline__ void tile_cummax_store(int (&c)[kItems],
     if (i < n) out[i] = max(c[k], ex);
   }
   if (threadIdx.x == kThreads - 1) bmax[b] = max(run, ex);
+}
+
+// ---- The one-launch scan (K7a) ------------------------------------------
+//
+// The workspace (cached per device and stream by the wrapper, zeroed once
+// when it is made) holds a ticket counter, a count of finished blocks and,
+// per tile, a 64-bit flag and a float64 sum.  Each call passes a fresh
+// epoch (never 0): tile b's flag equals the epoch once its sum holds this
+// call's, so flags left by earlier calls never satisfy a wait and no call
+// clears them.
+//   * Tiles are handed out in the order blocks start (take_tile), not by
+//     blockIdx: a block only ever waits for tiles whose blocks already run,
+//     so the scan cannot deadlock however many tiles there are.
+//   * The last block to finish resets the two counters (finish_tile); the
+//     next call on the same stream starts after it.  Two streams never
+//     share a workspace, so their calls cannot interleave on it.
+//   * A flag is written with st.release after the sum it guards and read
+//     with ld.acquire before that sum is read through L2 (__ldcg).
+//   * A ticket past the last tile, or a wait of seconds, can only mean a
+//     corrupt workspace: the kernel traps (a launch error) instead of
+//     hanging the card.
+constexpr int kMaxSpins = 1 << 24;
+
+struct ScanTile {
+  unsigned long long flag;      // the epoch once sum holds this call's sum
+  double sum;
+};
+
+struct ScanWorkspace {
+  unsigned long long* ticket;   // tiles handed out in this call
+  unsigned long long* done;     // blocks finished in this call
+  ScanTile* tile;               // [capacity], flag and sum in one sector
+};
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The tile this block scans: the next ticket of this call.
+__device__ __forceinline__ int64_t take_tile(const ScanWorkspace& ws,
+                                             unsigned long long* slot) {
+  if (threadIdx.x == 0) *slot = atomicAdd(ws.ticket, 1ull);
+  __syncthreads();
+  if (*slot >= gridDim.x) __trap();
+  return (int64_t)*slot;
+}
+
+// Publish tile b's sum s (every thread passes it; thread 0 writes), then
+// return the sum of the tiles before b in tile_prefix's order: thread k
+// adds the sums of tiles k, k + kThreads, ... below b, each once its flag
+// shows this call's epoch, and the block sums the threads' parts.
+__device__ __forceinline__ double publish_and_offset(const ScanWorkspace& ws,
+                                                     unsigned long long epoch,
+                                                     int64_t b, double s,
+                                                     double* smem) {
+  if (threadIdx.x == 0) {
+    ws.tile[b].sum = s;
+    st_release(&ws.tile[b].flag, epoch);
+  }
+  double part = 0.0;
+  for (int64_t k = threadIdx.x; k < b; k += kThreads) {
+    for (int spins = 0; ld_acquire(&ws.tile[k].flag) != epoch; ++spins) {
+      if (spins == kMaxSpins) __trap();
+      __nanosleep(32);
+    }
+    part += __ldcg(&ws.tile[k].sum);
+  }
+  return block_sum(part, smem);
+}
+
+// Count this block finished; the last block of the call resets the
+// counters for the next call on the stream.
+__device__ __forceinline__ void finish_tile(const ScanWorkspace& ws,
+                                            unsigned long long tiles) {
+  if (threadIdx.x == 0) {
+    if (atomicAdd(ws.done, 1ull) == tiles - 1) {
+      *ws.ticket = 0ull;
+      *ws.done = 0ull;
+    }
+  }
 }
 
 // Pass 3: tile b + 1 of row blockIdx.y raises its values to the maximum of

@@ -40,7 +40,8 @@ _SIGNATURES = {
     "cssm_resample_propagate": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                 _P],
-    "cssm_prefix_sum": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "cssm_prefix_sum": [_P, _P, _P, ctypes.c_int64, ctypes.c_uint64,
+                        ctypes.c_int, _P],
     "cssm_cummax_int32": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
     "cssm_gather": [_P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                     _P],
@@ -122,6 +123,8 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
@@ -139,5 +142,11 @@ def check(err: int, name: str) -> None:
 
 
 def cuda_stream(device) -> int:
+    """The raw handle of the current CUDA stream of ``device`` (a
+    ``torch.device`` or its index)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device if isinstance(device, int) else device.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:         # the handle alone, without a Stream object
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream

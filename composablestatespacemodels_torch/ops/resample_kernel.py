@@ -23,9 +23,14 @@ The log-weights are a separate ``[N]`` output (the TPU kernel wrote them
 into a spare padding row of the cloud, an alignment workaround).
 
 On the H100 the kernel is memory-bound: at d = 7, N = 2^20 it reads
-~28 MiB of cloud (+4 MiB counts) and writes ~32 MiB per step.  One thread
-per output column finds its ancestor by binary search over the
-L2-resident counts; the TPU's streaming merge is later work.
+~28 MiB of cloud (+4 MiB counts) and writes ~32 MiB per step.  Its
+ancestors come from a merge of the counts with the output slots (merge
+path, ``csrc/ancestor.cuh``): each block of 256 threads owns 2048 merged
+positions, stages its counts in shared memory and expands its slots'
+ancestors there, so no thread searches global memory for its ancestor.
+:func:`merge_path_ancestors_ref` replays that arithmetic in plain PyTorch
+(the CPU tests hold it to :func:`_ancestors_from_counts`); no CUDA path
+calls it.
 
 The noise is Philox4x32-10 keyed by the seed with the column index as the
 counter (``csrc/philox.cuh``).  :func:`philox4x32_10` computes the same
@@ -109,6 +114,70 @@ def philox_normals(seed: torch.Tensor, d: int, n: int, c2=0,
                                        (k0, 0))
         rows += [*_box_muller(w0, w1), *_box_muller(w2, w3)]
     return torch.stack(rows[:d], dim=-2)
+
+
+# csrc/ancestor.cuh: kMergeThreads, kMergeItems
+MERGE_THREADS, MERGE_ITEMS = 256, 8
+
+
+def merge_split_ref(counts: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """``ancestor.cuh::merge_split`` for each merged position in ``d``
+    (int64): the number of particles ``i`` with ``clamp(counts[i], 0, n) +
+    i < d``, found as the device finds it, 32 probes a round."""
+    n = counts.shape[0]
+    c = counts.long().clamp(0, n)
+    lo = (d - n).clamp(min=0)
+    hi = d.clamp(max=n)
+    lanes = torch.arange(1, 33, device=counts.device)
+    while bool((hi > lo).any()):
+        live = hi > lo
+        step = (hi - lo + 31) // 32
+        p = lo[:, None] + lanes * step[:, None] - 1
+        valid = live[:, None] & (p < hi[:, None])
+        pc = p.clamp(0, n - 1)
+        below = valid & (c[pc] + pc < d[:, None])
+        keep = lo + below.sum(dim=1) * step
+        hi = torch.where(live, torch.minimum(hi, keep + step - 1), hi)
+        lo = torch.where(live, keep, lo)
+    return lo
+
+
+def merge_path_ancestors_ref(counts: torch.Tensor,
+                             threads: int = MERGE_THREADS,
+                             items: int = MERGE_ITEMS) -> torch.Tensor:
+    """K2's ancestors as ``ancestor.cuh::merge_path_ancestors`` finds them,
+    for blocks of ``threads`` threads that walk ``items`` merged positions
+    each: int64 ``[N]``, equal to ``_ancestors_from_counts(counts, N)`` for
+    nondecreasing counts with ``counts[-1] == N``.  Particle i goes before
+    slot j in the merge when ``counts[i] <= j``; each block's split comes
+    from :func:`merge_split_ref`, each thread's from a search of the
+    block's counts (the same co-rank), then every thread walks its
+    positions within its block's bounds."""
+    n = counts.shape[0]
+    dev = counts.device
+    c = counts.long().clamp(0, n)
+    tile = threads * items
+    blocks = -(-2 * n // tile)
+    d0 = torch.arange(blocks, device=dev) * tile
+    d1 = (d0 + tile).clamp(max=2 * n)
+    i0, i1 = merge_split_ref(counts, d0), merge_split_ref(counts, d1)
+    j0, j1 = d0 - i0, d1 - i1
+    # every thread's start: its co-rank in the block's counts
+    dd = (d0[:, None] + torch.arange(threads, device=dev) * items).flatten()
+    blk = torch.arange(blocks, device=dev).repeat_interleave(threads)
+    ia = torch.searchsorted(c + torch.arange(n, device=dev), dd)
+    jb = dd - ia
+    end = torch.minimum(dd + items, d1[blk])
+    anc = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for t in range(items):
+        live = dd + t < end
+        take = live & (ia < i1[blk]) & (
+            (jb >= j1[blk]) | (c[ia.clamp(max=n - 1)] <= jb))
+        emit = live & ~take
+        anc[jb[emit]] = ia[emit].clamp(max=n - 1)
+        ia = ia + take.long()
+        jb = jb + emit.long()
+    return anc
 
 
 def _check(t: torch.Tensor, dtype, shape, name: str, dev) -> None:
@@ -238,6 +307,9 @@ def resample_propagate(x: torch.Tensor, counts: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no K2 kernel for device {x.device}")
     d, n = x.shape
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"N={n} outside (0, 2^31): K2's ancestors are "
+                         "int32")
     dev = x.device
     _check(x, torch.float32, (d, n), "x", dev)
     _check(counts, torch.int32, (n,), "counts", dev)

@@ -21,9 +21,11 @@ is K1 with the chain axis in the grid (``csrc/counts.cu``): row b of its
 
 K7a (:func:`prefix_sum`, replacing ``prefix_sum`` :613) and K7b
 (:func:`cummax_int32`, replacing ``cummax_int32`` :480) are the same tile
-scan without the counts (``csrc/scan.cu``): every prefix of the port has
-one implementation (``scan_kernel.py:617-620`` of the JAX package), and
-``inference/resampling.py::_cumsum_ref`` replays its summation order.
+scan without the counts (``csrc/scan.cu``): every prefix of the port adds
+in one order (``scan_kernel.py:617-620`` of the JAX package), and
+``inference/resampling.py::_cumsum_ref`` replays it.  K7a runs that order
+in one launch, with its tile sums and flags in a workspace kept per
+device and stream, so a call allocates only its output.
 
 Each wrapper launches its kernel for CUDA tensors and raises for any device
 it cannot serve; for CPU tensors (the tests) it computes its ``*_ref``
@@ -31,6 +33,8 @@ plain PyTorch version.  Each counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -141,18 +145,47 @@ def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
     return rs._cumsum_ref(x)
 
 
+# K7a's workspace per (device index, stream): [ticket, done, then a flag
+# and a tile sum per tile] as int64 words, zeroed once (csrc/scan.cuh, the
+# one-launch scan).  Calls on one stream run in order, and the kernel's
+# last block resets the counters, so a workspace needs no clearing between
+# calls; two streams never share one.  Each call tags its flags with a
+# fresh epoch.
+_SCAN_WORKSPACES: dict = {}
+_SCAN_EPOCHS = itertools.count(1)
+_SCAN_MIN_TILES = 1024
+
+
+def _scan_workspace(x: torch.Tensor, index: int, stream: int,
+                    tiles: int) -> torch.Tensor:
+    key = (index, stream)
+    ws = _SCAN_WORKSPACES.get(key)
+    if ws is None or ws.numel() < 2 + 2 * tiles:
+        ws = torch.zeros(2 + 2 * max(tiles, _SCAN_MIN_TILES),
+                         dtype=torch.int64, device=x.device)
+        _SCAN_WORKSPACES[key] = ws
+    return ws
+
+
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of float32 ``x [N]``: float64 accumulation,
     each entry rounded to float32."""
-    if x.device.type == "cpu":
-        return prefix_sum_ref(x)
-    _check_flat(x, torch.float32, "x", "K7a")
-    n = x.shape[0]
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return prefix_sum_ref(x)
+        _check_flat(x, torch.float32, "x", "K7a")        # raises
+    # the checks of _check_flat without its costlier device test
+    if not (x.dtype is torch.float32 and x.dim() == 1 and x.is_contiguous()
+            and x.numel()):
+        _check_flat(x, torch.float32, "x", "K7a")        # raises
+    n = x.numel()
+    index = x.get_device()
+    stream = _build.cuda_stream(index)
+    ws = _scan_workspace(x, index, stream, -(-n // _TILE))
     out = torch.empty_like(x)
-    bsum = torch.empty(-(-n // _TILE), dtype=torch.float64, device=x.device)
     err = _build.lib().cssm_prefix_sum(
-        x.data_ptr(), out.data_ptr(), bsum.data_ptr(), n, x.device.index,
-        _build.cuda_stream(x.device))
+        x.data_ptr(), out.data_ptr(), ws.data_ptr(), n, next(_SCAN_EPOCHS),
+        index, stream)
     _build.check(err, "cssm_prefix_sum")
     prefix_sum.launches += 1
     return out

@@ -65,6 +65,20 @@ def test_prefix_sum_signed_values_and_tiles():
     assert (np.abs(got - exact) <= np.spacing(np.abs(got)) / 2).all()
 
 
+def test_prefix_sum_beyond_1024_tiles():
+    """More than 1024 tiles: each thread of the tile offsets then adds two
+    tile sums (``rounds == 2`` in ``_cumsum_ref``), as K7a's one-launch
+    scan does at N = 2^22 + 3.  Within rtol 1e-6 of a float64
+    ``np.cumsum`` and within one float32 ulp of it (the two float64 sums
+    differ in order)."""
+    n = 1025 * 4096 + 3
+    x = np.random.default_rng(6).uniform(size=n).astype(np.float32)
+    got = prefix_sum_ref(torch.from_numpy(x)).numpy()
+    exact = np.cumsum(x.astype(np.float64))
+    np.testing.assert_allclose(got, exact, rtol=1e-6)
+    assert (np.abs(got - exact) <= np.spacing(got)).all()
+
+
 @pytest.mark.parametrize("n", [5, 4096, 9000])
 def test_cummax_matches_jax_kernel(n):
     rng = np.random.default_rng(n)
