@@ -23,7 +23,10 @@ d]``); the user-facing API takes and returns ``[N, d]``.
   the particle axis: ``"residual"``, ``"identity"`` and a callable
   ``(generator, weights) -> indices``.  The JAX package bit-compares its
   ``[N, d]`` scan against the ``-pallas`` names (its ``filter.py:803-808``),
-  so one route serves both.
+  so one route serves both.  The two JAX routes part only at the unweighted
+  ``eta_lower`` when ``floor(N * interval) == 0``: the port takes the
+  index rule of the route that the JAX package runs for the scheme name
+  (``clamp_eta``).
 * ``"systematic-pallas-fused"`` (alias ``"systematic-fused"``): with
   ``store`` ``"ll"``/None and no ESS trigger, :func:`_filter_impl_t_fused`,
   which folds each step's propagate and next weights into the resample
@@ -87,11 +90,12 @@ _SCHEMES = sorted((*rs._SCHEMES, *_ALIASES, *_FUSED))
 def credible_interval_eta(samples: torch.Tensor, interval: float = 0.975):
     """Order-statistic interval, eta flavour (ParticleFilter.scala:455-460):
     ``sorted[n - idx]``, ``sorted[min(idx, n - 1)]``,
-    ``idx = floor(n * interval)``."""
+    ``idx = floor(n * interval)``; at ``idx == 0`` the lower index is
+    clamped to ``n - 1``, as the JAX package's indexing clamps it."""
     n = samples.shape[0]
     idx = math.floor(n * interval)
     s = torch.sort(samples, dim=0).values
-    return s[n - idx], s[min(idx, n - 1)]
+    return s[min(n - idx, n - 1)], s[min(idx, n - 1)]
 
 
 def credible_interval_state(samples: torch.Tensor, interval: float = 0.975):
@@ -154,7 +158,8 @@ class FilterResult:
 
 
 def _make_save_fn_t(model: Model, store, interval: float, weighted: bool,
-                    generator: torch.Generator, n_steps: int, n: int):
+                    generator: torch.Generator, n_steps: int, n: int,
+                    clamp_eta: bool = False):
     """The per-step save of the ``[d, N]`` cloud after resampling:
     ``save(i, t, g, x_t, wn)`` with ``g`` the design vector at ``t`` and
     ``wn`` the carried normalised weights.  With ``weighted`` (an
@@ -162,7 +167,14 @@ def _make_save_fn_t(model: Model, store, interval: float, weighted: bool,
     summaries and paths are weight-aware; otherwise ``wn`` is uniform at
     every save and the reference's unweighted semantics apply
     (ParticleFilter.scala:415-424).  Random draws (``store='path'``) are
-    made here, for every step at once."""
+    made here, for every step at once.
+
+    ``clamp_eta`` picks the unweighted ``eta_lower`` index at
+    ``floor(n * interval) == 0`` as the JAX package's route for the scheme
+    does: its ``[N, d]`` scan (the plain scheme names and a callable)
+    clamps ``n - k`` to ``n - 1`` through :func:`credible_interval_eta`;
+    its transposed scan (the ``-pallas`` and fused names) wraps it mod n
+    (``filter.py:260-266`` and ``:322-331`` of the JAX package)."""
     if store == "ll" or store is None:
         return lambda i, t, g, x_t, wn: None
     device = generator.device
@@ -178,16 +190,18 @@ def _make_save_fn_t(model: Model, store, interval: float, weighted: bool,
     if store == "summary":
         d = model.dim
         # bisection selection in place of a [d, N] sort per step: exact,
-        # bit-identical order statistics; indices wrap mod n, as the sort
-        # path's negative indices do at edge intervals (filter.py:322-331)
+        # bit-identical order statistics; state indices wrap mod n, as the
+        # sort path's negative indices do at edge intervals
+        # (filter.py:322-331)
         if weighted:
             ps_s, ps_e = _interval_levels(n, interval)
             levels = torch.tensor([list(ps_s)] * d + [list(ps_e)],
                                   dtype=torch.float32, device=device)
         else:
             k = math.floor(n * interval)
+            e_lo = min(n - k, n - 1) if clamp_eta else (n - k) % n
             levels = torch.tensor([[(n - k - 1) % n, (k - 1) % n]] * d
-                                  + [[(n - k) % n, min(k, n - 1)]],
+                                  + [[e_lo, min(k, n - 1)]],
                                   dtype=torch.int32, device=device)
 
         def save(i, t, g, x_t, wn):
@@ -273,12 +287,12 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
                    n_particles: int, generator: torch.Generator, t0, x_init,
                    store, ess_threshold, interval: float,
                    fused_propagate: bool, scheme,
-                   observed: list) -> FilterResult:
+                   observed: list, clamp_eta: bool = False) -> FilterResult:
     """Per step: propagate to the observation time (torch ops, Euler-
     Maruyama without an exact transition, or K5 with ``fused_propagate``),
     weight, update ll and ESS, resample with ``scheme`` (a name of
     ``resampling._SCHEMES`` or a callable), save.  ``observed`` is the
-    mask as a host list."""
+    mask as a host list; ``clamp_eta`` as in :func:`_make_save_fn_t`."""
     device = generator.device
     params = params_to(params, device)
     sp = model.sde_params(params)
@@ -286,7 +300,7 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
     ts, ys, mask = data.ts, data.ys, data.mask
     n_steps = len(observed)
     save = _make_save_fn_t(model, store, interval, ess_threshold is not None,
-                           generator, n_steps, n)
+                           generator, n_steps, n, clamp_eta)
 
     x = _initial_cloud(model, params, generator, n, x_init)
     t_start = ts[:1] if t0 is None else torch.tensor(
@@ -551,10 +565,12 @@ def _run(model, params, data, n_particles, generator, resample, t0,
                                     generator, t0, initial_state, observed)
     scheme = ("systematic" if fused else resample if callable(resample)
               else _ALIASES.get(resample, resample))
+    # the names that the JAX package runs on its [N, d] scan
+    clamp_eta = callable(resample) or resample in rs._SCHEMES
     return _filter_impl_t(model, params, data, n_particles, generator, t0,
                           initial_state, store, ess_threshold, interval,
                           fused_propagate=fused, scheme=scheme,
-                          observed=observed)
+                          observed=observed, clamp_eta=clamp_eta)
 
 
 def log_likelihood(model: Model, params: Tree, data: TimeSeries,

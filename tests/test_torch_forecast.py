@@ -15,6 +15,7 @@ import torch
 
 import composablestatespacemodels_torch as ct
 from composablestatespacemodels_torch.models.tree import tree_map
+from composablestatespacemodels_tpu.inference import filter as jfilter
 
 from _torch_parity import both, drift_only_ou
 
@@ -122,3 +123,30 @@ def test_forecast_from_posterior_pairing(k):
         idx = torch.randint(0, k, (64,), generator=g)
     assert float(f.state_mean[0, 0]) == pytest.approx(
         float(states[idx].mean()), rel=1e-6)
+
+
+@pytest.mark.parametrize("n,interval", [(1, 0.995), (1, 0.2), (3, 0.2),
+                                        (999, 5e-4)])
+def test_credible_interval_eta_edges_match_jax(n, interval):
+    """``n * interval < 1`` (and n = 1): the lower index ``n - 0`` is
+    clamped to the maximum, as the JAX package's indexing clamps it."""
+    x = np.random.default_rng(n).normal(size=n).astype(np.float32)
+    got = ct.credible_interval_eta(torch.from_numpy(x), interval)
+    want = jfilter.credible_interval_eta(jnp.asarray(x), interval)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert float(got[0]) == x.max()
+
+
+def test_forecast_from_posterior_one_sample():
+    """One posterior draw: every order statistic of the pooled draws is
+    the draw itself, so the bounds equal the means."""
+    _, _, tm, tp = both("flagship")
+    stacked = tree_map(lambda v: torch.stack([v] * 3), tp)
+    f = ct.forecast_from_posterior(tm, stacked,
+                                   torch.Generator().manual_seed(9), 0.0,
+                                   [1.0, 2.0], 1)
+    for mean, lo, hi in ((f.eta_mean, f.eta_lower, f.eta_upper),
+                         (f.obs_mean, f.obs_lower, f.obs_upper),
+                         (f.state_mean, f.state_lower, f.state_upper)):
+        assert torch.equal(lo, mean) and torch.equal(hi, mean)

@@ -242,3 +242,72 @@ def test_credible_intervals_match_jax(interval):
              jfilter.credible_interval_eta(jnp.asarray(x[:, 0]), interval))):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# floor(N * interval) == 0: the scheme names that the JAX package runs on
+# its [N, d] scan clamp the unweighted eta_lower index to n - 1; the names
+# it runs on the transposed scan wrap it to 0 (filter.py:260-266, :322-331)
+CLAMP_SCHEMES = ["systematic", "stratified", "multinomial", "residual",
+                 "identity", "callable"]
+WRAP_SCHEMES = ["systematic-pallas", "stratified-pallas",
+                "systematic-pallas-fused", "systematic-fused"]
+
+
+@pytest.mark.parametrize("route", ["clamp", "wrap"])
+def test_edge_interval_save_matches_jax_route(route):
+    """N = 4 at interval 0.2: one cloud's unweighted summary against the
+    save of the JAX route, order statistics bit for bit."""
+    jm, _, tm, _ = both("oracle")
+    n, interval, t = 4, 0.2, 5.0
+    x = np.random.default_rng(12).normal(size=(tm.dim, n)).astype(np.float32)
+    wn = np.full(n, 1.0 / n, np.float32)
+    if route == "clamp":
+        want = jfilter._make_save_fn(jm, "summary", interval, False)(
+            jnp.float32(t), jnp.asarray(x.T), jnp.asarray(wn),
+            jax.random.PRNGKey(0))
+    else:
+        want = jfilter._make_save_fn_t(jm, "summary", interval, False)(
+            jnp.float32(t), jnp.asarray(x), jnp.asarray(wn),
+            jax.random.PRNGKey(0))
+    save = _make_save_fn_t(tm, "summary", interval, False, torch.Generator(),
+                           1, n, clamp_eta=route == "clamp")
+    got = [g.numpy() for g in save(0, torch.tensor(t),
+                                   tm.design_vector(torch.tensor(t)),
+                                   torch.from_numpy(x), torch.from_numpy(wn))]
+    for i in (1, 2, 4, 5):
+        np.testing.assert_array_equal(_bits(got[i]), _bits(want[i]))
+    for i in (0, 3):
+        np.testing.assert_allclose(got[i], want[i], rtol=1e-6, atol=1e-7)
+    s = np.sort(x[0])
+    assert got[1] == (s[-1] if route == "clamp" else s[0])
+
+
+@pytest.mark.parametrize("scheme", CLAMP_SCHEMES + WRAP_SCHEMES)
+def test_edge_interval_eta_lower_follows_jax_route(scheme):
+    """The oracle (eta = x) at N = 4, interval 0.2, T = 5.  State levels
+    are the cloud's maximum on both routes; eta_lower is the maximum too
+    on the clamp route, the minimum (eta_upper) on the wrap route.  The
+    JAX package's own ``"systematic"`` filter shows the clamp."""
+    jm, jp, tm, tp = both("oracle")
+    data = cj.simulate_regular(jm, jp, jax.random.PRNGKey(3),
+                               5).to_timeseries()
+    series = to_torch_series(data.ts, data.ys, data.mask)
+    resample = ((lambda g, w: torch.arange(w.shape[0]))
+                if scheme == "callable" else scheme)
+    s = ct.bootstrap_filter(tm, tp, series, 4,
+                            torch.Generator().manual_seed(13),
+                            resample=resample, interval=0.2).summary
+    top = s.state_lower[:, 0]
+    assert torch.equal(s.state_upper[:, 0], top)
+    if scheme in CLAMP_SCHEMES:
+        assert torch.equal(s.eta_lower, top)
+        assert bool((s.eta_lower > s.eta_upper).any())
+    else:
+        assert torch.equal(s.eta_lower, s.eta_upper)
+        assert bool((top > s.eta_lower).any())
+    if scheme == "systematic":
+        j = cj.bootstrap_filter(jm, jp, data, 4, jax.random.PRNGKey(14),
+                                resample="systematic", interval=0.2).summary
+        np.testing.assert_array_equal(np.asarray(j.eta_lower),
+                                      np.asarray(j.state_lower)[:, 0])
+        assert (np.asarray(j.eta_lower) > np.asarray(j.eta_upper)).any()
