@@ -30,10 +30,13 @@ the fused summary filter, against the generic ``"systematic"`` route; the
 ``"systematic"``, ``"stratified"``, ``"multinomial"`` and ``"residual"``
 schemes against Kalman; ``forecast_times``; fused PMMH for the negative
 binomial; and one PyTorch call per kernel function where one exists.
-K2 is held to its plain version on the counts of four weight regimes and
-of two spikes, at N = 100, 2^20 and 2^20 + 5, and timed on each; K7a bit
-for bit from N = 1 to 2^22 + 3 and over 200 back-to-back calls.  Last,
-each kernel's device time per call from ``torch.profiler``.
+K1 is held to its plain version also on weights whose negative runs make
+the counts fall across tiles (the running-max carry); K2 and K4 on the
+counts of four weight regimes and of two spikes, at N = 100, 2^20 and
+2^20 + 5 (K4 also at d = 1 and 13 and on a misaligned counts view), and
+timed on each; K7a bit for bit from N = 1 to 2^22 + 3 and over 200
+back-to-back calls.  Last, each kernel's device time per call from
+``torch.profiler``, with K1, K4 and K7a held to one CUDA kernel per call.
 Every check raises on failure.  Prints one line per phase, then a JSON
 line of per-kernel results (with each kernel's bound from this run's
 shapes, ``ms`` the back-to-back time per call and ``device_ms`` the
@@ -207,22 +210,59 @@ def _weights(regime: str, n: int, gen, dev):
         raw = torch.exp(0.5 * z)
     elif regime == "heavy":
         raw = torch.exp(z) ** 4
+    elif regime == "carry":
+        raw = _carry_weights(z)
     else:  # degenerate: one spike
         raw = torch.full((n,), 1e-12, device=dev)
         raw[n // 3] = 1.0
     return raw / raw.sum()
 
 
+# K1's tile (csrc/scan.cuh: kTile)
+K1_TILE = 4096
+
+
+def _carry_weights(z):
+    """Mild weights with negative runs across tile boundaries (every 16th
+    boundary, and one run over two whole boundaries), so the cdf, and the
+    counts before their running max, fall from one tile into the next: the
+    running-max carry across tiles has work to do.  Below two tiles one
+    run in the middle."""
+    raw = (0.5 * z).exp()
+    n = raw.shape[0]
+    half = min(300, n // 10)
+    for edge in range(K1_TILE, n, 16 * K1_TILE) if n > K1_TILE else [n // 2]:
+        raw[edge - half:edge + half] = -3.0
+    if n > 6 * K1_TILE:
+        raw[3 * K1_TILE - half:5 * K1_TILE + half] = -0.5
+    return raw
+
+
+def _carried(w, total, u, n: int) -> int:
+    """Entries of the plain counts before their running max that lie below
+    the maximum of the earlier tiles: what the carry across tiles lifts."""
+    import torch
+
+    from composablestatespacemodels_torch.inference import resampling as rs
+    c0 = torch.clamp(torch.ceil(n * rs._cumsum_ref(w / total) - u), 0,
+                     n).to(torch.int32)
+    c0[-1] = n
+    start = torch.arange(n, device=w.device) // K1_TILE * K1_TILE
+    before = torch.cummax(c0, 0).values[(start - 1).clamp(min=0)]
+    return int(((start > 0) & (c0 < before)).sum())
+
+
 def phase_counts(gen, dev, n: int):
-    """[3] K1 against its plain version in four weight regimes."""
+    """[3] K1 against its plain version in four weight regimes and on
+    weights with negative runs across tile boundaries (the carry case)."""
     import torch
 
     from composablestatespacemodels_torch.inference import resampling as rs
     from composablestatespacemodels_torch.ops.scan_kernel import (
         systematic_counts_fused, systematic_counts_fused_ref)
 
-    max_err, report, keep = 0, [], None
-    for regime in ("uniform", "mild", "heavy", "degenerate"):
+    max_err, report, keep, carried = 0, [], None, 0
+    for regime in ("uniform", "mild", "heavy", "degenerate", "carry"):
         w = _weights(regime, n, gen, dev)
         total = w.sum()
         u = torch.rand((), generator=gen, device=dev)
@@ -233,6 +273,11 @@ def phase_counts(gen, dev, n: int):
             if not bool((torch.diff(c) >= 0).all()) or int(c[-1]) != n:
                 raise AssertionError(f"K1 {regime}: {name} counts are not "
                                      f"monotone with counts[-1] == N")
+        if regime == "carry":
+            carried = _carried(w, total, u, n)
+            if n > K1_TILE and not carried:
+                raise AssertionError("K1 carry case: no count falls across "
+                                     "a tile boundary")
         diff = (ck.long() - cp.long())
         bad = diff != 0
         n_bad = int(bad.sum())
@@ -252,7 +297,8 @@ def phase_counts(gen, dev, n: int):
             keep = (w, total, u, ck)
     print(f"[3] K1 counts vs plain at N={n}: mismatches {' '.join(report)} "
           "(allowed: +-1 within 2 ulp of an integer); both monotone, "
-          "counts[-1]=N", flush=True)
+          f"counts[-1]=N; the carry case lifts {carried} counts across tile "
+          "boundaries", flush=True)
     return max_err, keep
 
 
@@ -536,31 +582,49 @@ def _read_counters():
     return {k: fn.launches for k, fn in _counters().items()}
 
 
-def phase_gather(gen, dev, n: int, d: int = 7):
-    """[8] K4 against its plain version on the four weight regimes' counts."""
+K4_SIZES, K4_WIDTHS = (N_PMMH, N_MAIN, N_MAIN + 5), (1, 7, 13)
+
+
+def phase_gather(gen, dev):
+    """[8] K4 against its plain version, bit for bit, on the counts of
+    every K2 regime at every N of K4_SIZES and d of K4_WIDTHS, and on a
+    counts view that is not 16-byte aligned (the merge's 4-byte cp.async
+    path).  Returns the mild case at d = 7, N = 2^20."""
     import torch
 
+    from composablestatespacemodels_torch.ops import _build
     from composablestatespacemodels_torch.ops.resample_kernel import (
         sorted_gather_resample_t, sorted_gather_resample_t_ref)
-    from composablestatespacemodels_torch.ops.scan_kernel import (
-        systematic_counts_fused)
 
-    x = torch.randn((d, n), generator=gen, device=dev)
-    keep = None
-    for regime in ("uniform", "mild", "heavy", "degenerate"):
-        w = _weights(regime, n, gen, dev)
-        counts = systematic_counts_fused(
-            w, w.sum(), torch.rand((), generator=gen, device=dev))
-        yk = sorted_gather_resample_t(x, counts)
-        yp = sorted_gather_resample_t_ref(x, counts)
-        torch.cuda.synchronize()
-        if not torch.equal(yk, yp):
-            raise AssertionError(f"K4 {regime}: gather differs from "
-                                 "x[:, ancestors(counts)]")
-        if regime == "heavy":
-            keep = (x, counts)
-    print(f"[8] K4 gather vs plain at d={d} N={n}: bit-equal in the uniform, "
-          "mild, heavy and degenerate regimes", flush=True)
+    src = (_build.CSRC / "gather.cu").read_text()
+    if "merge_path_ancestors" not in src or "upper_bound" in src:
+        raise AssertionError("gather.cu does not find its ancestors by the "
+                             "merge path")
+    keep, cases = None, 0
+    for n in K4_SIZES:
+        xs = {d: torch.randn((d, n), generator=gen, device=dev)
+              for d in K4_WIDTHS}
+        for regime in K2_REGIMES:
+            counts = _regime_counts(regime, n, gen, dev)
+            buf = torch.empty(n + 1, dtype=torch.int32, device=dev)
+            buf[1:] = counts
+            for d, x in xs.items():
+                views = (("", counts), (" misaligned", buf[1:]))
+                for what, c in views if d == 7 else views[:1]:
+                    yk = sorted_gather_resample_t(x, c)
+                    yp = sorted_gather_resample_t_ref(x, counts)
+                    torch.cuda.synchronize()
+                    if not torch.equal(yk, yp):
+                        raise AssertionError(
+                            f"K4 {regime}{what} d={d} N={n}: "
+                            f"{int((yk != yp).sum())} entries differ from "
+                            "x[:, ancestors(counts)]")
+                    cases += 1
+            if n == N_MAIN and regime == "mild":
+                keep = (xs[7], counts)
+    print(f"[8] K4 gather vs plain: bit-equal at N in {K4_SIZES}, d in "
+          f"{K4_WIDTHS} on the counts of {', '.join(K2_REGIMES)}, and on a "
+          f"misaligned counts view at d=7 ({cases} cases)", flush=True)
     return 0.0, keep
 
 
@@ -885,9 +949,20 @@ def phase_ess_sync(dev, pairs: int = 6):
     return med
 
 
+def _time_k4_regimes(x, regime_counts):
+    """K4 alone (100 back-to-back calls, the better of two) on the counts of
+    every K2 regime."""
+    from composablestatespacemodels_torch.ops.resample_kernel import (
+        sorted_gather_resample_t)
+
+    return {regime: min(_cuda_ms(lambda: sorted_gather_resample_t(x, c), 100)
+                        for _ in range(2))
+            for regime, c in regime_counts.items()}
+
+
 def phase_timing_new(gather_in, prop_in, scan_in, k2_in, regime_counts):
     """[15] each slice-2 kernel alone against its plain version at
-    N = 2^20; K2 again on every regime's counts."""
+    N = 2^20; K2 again and K4 on every regime's counts."""
     from composablestatespacemodels_torch.ops.resample_kernel import (
         propagate_weights_t, propagate_weights_t_ref,
         sorted_gather_resample_t, sorted_gather_resample_t_ref)
@@ -908,12 +983,15 @@ def phase_timing_new(gather_in, prop_in, scan_in, k2_in, regime_counts):
         p2 = _cuda_ms(lambda: ref(*args), 10)
         times[name] = (min(k1, k2), min(p1, p2))
     k2_regimes = _time_k2_regimes(k2_in, regime_counts)
+    k4_regimes = _time_k4_regimes(gather_in[0], regime_counts)
     print(f"[15] kernel alone vs plain at N={N_MAIN}: "
           + "; ".join(f"{k} {v[0]:.4f} ms vs {v[1]:.4f} ms"
                       for k, v in times.items())
           + "; K2 by counts regime: " + ", ".join(
-              f"{k} {v:.4f} ms" for k, v in k2_regimes.items()), flush=True)
-    return times, k2_regimes
+              f"{k} {v:.4f} ms" for k, v in k2_regimes.items())
+          + "; K4 by counts regime (d=7): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in k4_regimes.items()), flush=True)
+    return times, k2_regimes, k4_regimes
 
 
 def phase_counts_batched(gen, dev):
@@ -1626,18 +1704,21 @@ def phase_library(gather_in, scan_in):
     return times
 
 
-# CUDA kernels one call of each wrapper launches at its timing inputs (K1
-# and K7b at N = 2^20: a carry pass; K6 batched at N = 100: one tile)
-KERNELS_PER_CALL = {"K1": 3, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 2,
+# CUDA kernels one call of each wrapper launches at its timing inputs (K7b
+# at N = 2^20: a carry pass; K6 batched at N = 100: one tile); K1, K4 and
+# K7a must launch one
+KERNELS_PER_CALL = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 2,
                     "K6b": 2, "K8": 1}
+ONE_KERNEL = ("K1", "K4", "K7a")
 
 
 def phase_device(inputs, scan_w, k3):
     """[27] each kernel's device time per call from torch.profiler (the sum
     of its CUDA kernels' times, so a row whose back-to-back ``ms`` is bound
     by the host shows it) and its CUDA kernels per call, on the inputs it is
-    timed on; for K7a and ``torch.cumsum`` also the host microseconds per
-    call, 1000 calls with no synchronisation."""
+    timed on; for K1, K7a and ``torch.cumsum`` also the host microseconds
+    per call, 1000 calls with no synchronisation.  Fails if K1, K4 or K7a
+    launches more than one CUDA kernel per call."""
     import torch
 
     from composablestatespacemodels_torch.ops.resample_kernel import (
@@ -1667,19 +1748,23 @@ def phase_device(inputs, scan_w, k3):
         host_us_per_call=_host_us(lambda: prefix_sum(scan_w)),
         library_host_us_per_call=_host_us(lambda: torch.cumsum(scan_w, 0)),
         library_device_ms=cum[0], library_device_kernels_per_call=cum[1])
+    out["K1"]["host_us_per_call"] = _host_us(
+        lambda: systematic_counts_fused(*inputs["K1"]))
     print("[27] device time per call (torch.profiler, summed over the call's "
           "CUDA kernels): " + "; ".join(
               f"{k} {v['device_ms']} ms in {v['device_kernels_per_call']:g} "
               f"kernels ({', '.join(n[:32] for n in v['device_kernels'])})"
               for k, v in out.items())
           + f"; torch.cumsum {cum[0]} ms in {cum[1]:g} kernels; host per "
-          f"call (1000 calls, no sync): K7a "
+          f"call (1000 calls, no sync): K1 "
+          f"{out['K1']['host_us_per_call']:.2f} us, K7a "
           f"{out['K7a']['host_us_per_call']:.2f} us, torch.cumsum "
           f"{out['K7a']['library_host_us_per_call']:.2f} us", flush=True)
-    if out["K7a"]["device_kernels_per_call"] not in (0.0, 1.0):
-        raise AssertionError("K7a launched "
-                             f"{out['K7a']['device_kernels_per_call']} CUDA "
-                             "kernels per call, expected 1")
+    for key in ONE_KERNEL:
+        if out[key]["device_kernels_per_call"] not in (0.0, 1.0):
+            raise AssertionError(
+                f"{key} launched {out[key]['device_kernels_per_call']} CUDA "
+                "kernels per call, expected 1")
     return out, k3_device
 
 
@@ -1711,19 +1796,18 @@ def main() -> int:
     launches = phase_main(dev, device_line)
     phase_oracle(dev)
     times, k2_regimes = phase_timing(counts_in[:3], prop_in, regime_counts)
-    k4_err, gather_in = phase_gather(gen, dev, N_MAIN)
+    k4_err, gather_in = phase_gather(gen, dev)
     k5_err, prop5_in = phase_propagate(gen, dev, N_MAIN)
     k7_err, scan_in = phase_scans(gen, dev, N_MAIN)
     summary_launches = phase_summary(dev, device_line)
     strat_launches = phase_oracle_summary(dev)
     phase_selection(gen, dev, N_MAIN)
     phase_ess_sync(dev)
-    new_times, k2_regimes_15 = phase_timing_new(gather_in, prop5_in, scan_in,
-                                                prop_in, regime_counts)
+    new_times, k2_regimes_15, k4_regimes = phase_timing_new(
+        gather_in, prop5_in, scan_in, prop_in, regime_counts)
     times.update(new_times)
-    # K1 and K4 at the single PMMH tier's shapes, [N_PMMH] and [7, N_PMMH]
+    # K1 at the single PMMH tier's shape, [N_PMMH] (phase 8 holds K4 there)
     k1_err = max(k1_err, phase_counts(gen, dev, N_PMMH)[0])
-    k4_err = max(k4_err, phase_gather(gen, dev, N_PMMH)[0])
     k6b_err, counts_b_in = phase_counts_batched(gen, dev)
     k8_err = phase_sweep(gen, dev)
     phase_sweep_path(dev)
@@ -1746,7 +1830,6 @@ def main() -> int:
     # bound_ms from this run's inputs: each input read once, each output
     # written once; operations counted per element as noted beside each
     n, d = N_MAIN, 7
-    log_n = math.log2(n)
     per_col = d * (OPS_NORMAL + 4) + OPS_K3       # K5: propagate + weights
     b, dk, nk = sweep_in[0].shape
     steps, kc = sweep_in[1].shape[0], sweep_in[3].shape[-1]
@@ -1755,7 +1838,8 @@ def main() -> int:
         "K1": _bound(8 * n, 8 * n),        # read w, write counts
         # K2's ancestors by a merge: 2n merged positions, ~2 ops each
         "K2": _bound(4 * (2 * d * n + 2 * n), n * (per_col + 4)),
-        "K4": _bound(4 * (2 * d * n + n), n * 2 * log_n),
+        # K4's ancestors by the same merge: 2n merged positions, ~2 ops each
+        "K4": _bound(4 * (2 * d * n + n), 2 * 2 * n),
         "K5": _bound(4 * (2 * d * n + n), n * per_col),
         "K7a": _bound(8 * n, 2 * n),
         "K7b": _bound(8 * n, n),
@@ -1834,6 +1918,7 @@ def main() -> int:
             max(v["err"].values()), v["K5"], v["K5 plain"], k3_device[name]))
     kernels[1]["ms_by_counts_regime"] = {
         k: [v, k2_regimes_15[k]] for k, v in k2_regimes.items()}
+    kernels[2]["ms_by_counts_regime"] = k4_regimes
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

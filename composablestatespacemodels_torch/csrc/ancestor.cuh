@@ -6,12 +6,11 @@
 // first i with counts[i] > j (inference/resampling.py::_ancestors_from_counts
 // of either package), or n - 1 when there is none.  Two ways to find it:
 //
-// * upper_bound: one thread per output column searches the counts, which
-//   stay in the 50 MB L2 (4 MiB at N = 2^20); a chain of ~20 dependent
-//   probes.  K4 and K8 use it (K8 keeps its counts in shared memory, which
-//   the read-only cache path (__ldg) does not reach: kGlobal = false).
+// * upper_bound: one thread per output column searches the counts; a
+//   chain of ~log2(n) dependent probes.  Only K8 uses it, on its counts in
+//   shared memory (N <= 1024).
 //
-// * merge_path_ancestors (K2): the ancestors are the merge of two
+// * merge_path_ancestors (K2, K4): the ancestors are the merge of two
 //   nondecreasing sequences, the particles' boundaries counts[0..n) and the
 //   slots 0..n), where particle i goes before slot j when counts[i] <= j.
 //   Particle i then sits at merged position i + counts[i] and slot j's
@@ -37,18 +36,12 @@
 namespace cssm {
 
 // first i in [0, n) with counts[i] > j (counts nondecreasing, last == n)
-template <bool kGlobal = true>
 __device__ __forceinline__ int64_t upper_bound(const int* __restrict__ counts,
                                                int64_t n, int64_t j) {
   int64_t lo = 0, hi = n;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
-    int c;
-    if constexpr (kGlobal) {
-      c = __ldg(counts + mid);
-    } else {
-      c = counts[mid];
-    }
+    const int c = counts[mid];
     if ((int64_t)c > j) {
       hi = mid;
     } else {

@@ -23,8 +23,9 @@
 // 16-byte aligned (scalar loads otherwise, in the same kernel), publishes
 // the tile's sum, adds the sums of the tiles before it in the three-pass
 // order and writes its prefix once.  Its flags and tile sums live in a
-// workspace that the wrapper keeps per device and stream, so a call
-// allocates only its output.  K7b keeps two launches (scan, then carry).
+// workspace that the wrapper keeps per device and stream (K1 shares it),
+// so a call allocates only its output.  K7b keeps two launches (scan, then
+// carry).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,9 +98,10 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace cssm
 
-// ws: 2 + 2 * tiles 64-bit words (ticket, done, then a flag and a sum per
-// tile), zeroed when it was made; epoch: a value this workspace has not
-// seen, never 0.  Sets the device only when it is not the current one.
+// ws: the shared workspace (ticket, done, then a flag and a sum per tile;
+// K7a reads the first 2 + 2 * tiles 64-bit words), zeroed when it was made;
+// epoch: a value this workspace has not seen, never 0.  Sets the device
+// only when it is not the current one.
 extern "C" int cssm_prefix_sum(const void* x, void* out, void* ws, int64_t n,
                                unsigned long long epoch, int device,
                                void* stream) {
@@ -111,7 +113,7 @@ extern "C" int cssm_prefix_sum(const void* x, void* out, void* ws, int64_t n,
   if (n <= 0 || epoch == 0) return (int)cudaErrorInvalidValue;
   const int64_t tiles = (n + kTile - 1) / kTile;
   auto* words = (unsigned long long*)ws;
-  const ScanWorkspace w{words, words + 1, (ScanTile*)(words + 2)};
+  const ScanWorkspace w{words, words + 1, (ScanTile*)(words + 2), nullptr};
   prefix_scan<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, n, w, epoch,
       (unsigned long long)tiles);

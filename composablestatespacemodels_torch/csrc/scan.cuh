@@ -8,18 +8,20 @@
 // share this header: a fixed tile of kThreads x kItems elements, a float64
 // prefix rounded to float32 per entry, and an exact int32 running max.  The
 // TPU walks its grid in order and carries the prefix and the running max in
-// SMEM; Hopper blocks run in parallel.  K1, K6 batched and K7b scan in
-// passes:
+// SMEM; Hopper blocks run in parallel.  K6 batched and K7b scan in passes:
 //   1. tile_sums: each tile's float64 sum;
 //   2. tile_prefix (+ tile_cummax_store): each tile adds up the sums of the
 //      tiles before it, scans its own elements and, for the running max,
 //      writes its values maxed within the tile and its tile maximum;
 //   3. cummax_carry: each tile takes the maximum of the tiles before it and
 //      raises its values to it (left after one read when nothing crosses).
-// K7a scans in one launch (take_tile .. finish_tile below): a block takes
-// its tile from a ticket counter, publishes the tile's sum with a flag,
-// waits for the flags of the tiles before it and adds their sums in pass
-// 2's order, so the input is read once and the bits are the passes' bits.
+// K7a and K1 scan in one launch (take_tile .. finish_tile below): a block
+// takes its tile from a ticket counter, publishes the tile's sum with a
+// flag, waits for the flags of the tiles before it and adds their sums in
+// pass 2's order, so the input is read once and the bits are the passes'
+// bits.  K1 then publishes its tile maximum under a second flag and takes
+// the maximum of the tiles before it (publish_and_carry): pass 3's carry,
+// without a second read or write of the counts.
 // Every float64 addition has a fixed association order (warp shuffles in a
 // fixed tree, no atomics in the sums), which the plain PyTorch version
 // (inference/resampling.py::_cumsum_ref) replays: kernel and plain version
@@ -226,14 +228,15 @@ __device__ __forceinline__ void tile_cummax_store(int (&c)[kItems],
   if (threadIdx.x == kThreads - 1) bmax[b] = max(run, ex);
 }
 
-// ---- The one-launch scan (K7a) ------------------------------------------
+// ---- The one-launch scan (K7a, K1) --------------------------------------
 //
 // The workspace (cached per device and stream by the wrapper, zeroed once
-// when it is made) holds a ticket counter, a count of finished blocks and,
-// per tile, a 64-bit flag and a float64 sum.  Each call passes a fresh
-// epoch (never 0): tile b's flag equals the epoch once its sum holds this
-// call's, so flags left by earlier calls never satisfy a wait and no call
-// clears them.
+// when it is made, shared by K7a and K1) holds a ticket counter, a count of
+// finished blocks and, per tile, a 64-bit flag with a float64 sum and a
+// second flag with the tile's int32 maximum (K1 only).  Each call passes a
+// fresh epoch (never 0): tile b's flag equals the epoch once its sum (or
+// maximum) holds this call's, so flags left by earlier calls, of either
+// kernel, never satisfy a wait and no call clears them.
 //   * Tiles are handed out in the order blocks start (take_tile), not by
 //     blockIdx: a block only ever waits for tiles whose blocks already run,
 //     so the scan cannot deadlock however many tiles there are.
@@ -252,10 +255,16 @@ struct ScanTile {
   double sum;
 };
 
+struct ScanMax {
+  unsigned long long flag;      // the epoch once max holds this call's max
+  long long max;
+};
+
 struct ScanWorkspace {
   unsigned long long* ticket;   // tiles handed out in this call
   unsigned long long* done;     // blocks finished in this call
   ScanTile* tile;               // [capacity], flag and sum in one sector
+  ScanMax* tile_max;            // [capacity], K1's running-max carry
 };
 
 __device__ __forceinline__ void st_release(unsigned long long* p,
@@ -304,6 +313,30 @@ __device__ __forceinline__ double publish_and_offset(const ScanWorkspace& ws,
     part += __ldcg(&ws.tile[k].sum);
   }
   return block_sum(part, smem);
+}
+
+// Publish tile b's maximum m (thread kThreads - 1 holds it), then return
+// the maximum of the tiles before b: thread k takes tiles k, k + kThreads,
+// ... below b, each once its flag shows this call's epoch (an int max is
+// exact in any order).  The tiles before b hold earlier tickets, so their
+// blocks already run and publish without waiting for b.
+__device__ __forceinline__ int publish_and_carry(const ScanWorkspace& ws,
+                                                 unsigned long long epoch,
+                                                 int64_t b, int m,
+                                                 int* smem) {
+  if (threadIdx.x == kThreads - 1) {
+    ws.tile_max[b].max = m;
+    st_release(&ws.tile_max[b].flag, epoch);
+  }
+  int part = INT_MIN;
+  for (int64_t k = threadIdx.x; k < b; k += kThreads) {
+    for (int spins = 0; ld_acquire(&ws.tile_max[k].flag) != epoch; ++spins) {
+      if (spins == kMaxSpins) __trap();
+      __nanosleep(32);
+    }
+    part = max(part, (int)__ldcg(&ws.tile_max[k].max));
+  }
+  return block_max(part, smem);
 }
 
 // Count this block finished; the last block of the call resets the

@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
     __syncthreads();
     // 5-6. ancestors from the counts in shared memory; gather into y
     if (j < n) {
-      const int64_t anc = upper_bound<false>(counts, n, j);
+      const int64_t anc = upper_bound(counts, n, j);
       for (int r = 0; r < d; ++r) y[r * n + j] = x[r * n + anc];
     }
     __syncthreads();

@@ -287,7 +287,7 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
                    n_particles: int, generator: torch.Generator, t0, x_init,
                    store, ess_threshold, interval: float,
                    fused_propagate: bool, scheme,
-                   observed: list, clamp_eta: bool = False) -> FilterResult:
+                   observed: list, clamp_eta: bool) -> FilterResult:
     """Per step: propagate to the observation time (torch ops, Euler-
     Maruyama without an exact transition, or K5 with ``fused_propagate``),
     weight, update ll and ESS, resample with ``scheme`` (a name of

@@ -33,8 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 # entry name -> argtypes (see the extern "C" functions in csrc/*.cu)
 _SIGNATURES = {
-    "cssm_systematic_counts": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,
-                               ctypes.c_int, _P],
+    "cssm_systematic_counts": [_P, _P, _P, _P, _P, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_uint64, ctypes.c_int,
+                               _P],
     "cssm_systematic_counts_batched": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,
                                        ctypes.c_int64, ctypes.c_int, _P],
     "cssm_resample_propagate": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,

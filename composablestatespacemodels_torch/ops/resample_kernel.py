@@ -28,9 +28,10 @@ ancestors come from a merge of the counts with the output slots (merge
 path, ``csrc/ancestor.cuh``): each block of 256 threads owns 2048 merged
 positions, stages its counts in shared memory and expands its slots'
 ancestors there, so no thread searches global memory for its ancestor.
-:func:`merge_path_ancestors_ref` replays that arithmetic in plain PyTorch
-(the CPU tests hold it to :func:`_ancestors_from_counts`); no CUDA path
-calls it.
+K4 finds its ancestors the same way.  :func:`merge_path_ancestors_ref`
+replays that arithmetic in plain PyTorch (the CPU tests hold it to
+:func:`_ancestors_from_counts` and to the JAX K4); no CUDA path calls
+it.
 
 The noise is Philox4x32-10 keyed by the seed with the column index as the
 counter (``csrc/philox.cuh``).  :func:`philox4x32_10` computes the same
@@ -40,7 +41,9 @@ the card can compare kernel and plain version value by value.
 
 K4 (:func:`sorted_gather_resample_t`, replacing ``sorted_gather_resample_t``
 :616, ``csrc/gather.cu``) is K2 without the propagate: ``y[:, j] =
-x[:, anc_j]``, bit for bit ``x[:, _ancestors_from_counts(counts, N)]``.
+x[:, anc_j]``, bit for bit ``x[:, _ancestors_from_counts(counts, N)]``,
+its ancestors by K2's merge path, then each row of a thread's eight
+columns loaded before any is stored.
 K5 (:func:`propagate_weights_t`, replacing ``propagate_weights_t`` :756,
 ``csrc/propagate_weights.cu``) is K2 without the resample: ``y = a * x +
 b + s * z`` with the same Philox noise, plus the log-weights when a family
@@ -216,6 +219,9 @@ def sorted_gather_resample_t(x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no K4 kernel for device {x.device}")
     d, n = x.shape
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"N={n} outside (0, 2^31): K4's ancestors are "
+                         "int32")
     _check(x, torch.float32, (d, n), "x", x.device)
     _check(counts, torch.int32, (n,), "counts", x.device)
     y = torch.empty_like(x)

@@ -11,21 +11,26 @@ n))`` with ``counts[-1] = n``, as flat int32 ``[N]``.
 On the H100 the kernel is memory-bound: one 4 MiB read of the weights and
 one 4 MiB write of the counts at N = 2^20.  The TPU kernel walks its grid
 in order with the prefix and running-max carries in SMEM; the CUDA kernel
-is a three-pass parallel scan instead (``csrc/scan.cuh``).  ``total`` and
-``u`` stay on the device, so a filter step never waits for the host.
+is one launch of ``csrc/scan.cuh``'s one-launch scan instead: each tile
+publishes its float64 sum and, once its counts are formed, its maximum
+under epoch-tagged flags, and adds (maxes) those of the tiles before it.
+``total`` and ``u`` stay on the device, so a filter step never waits for
+the host.
 
 K6 batched (:func:`systematic_counts_batched`, replacing the batched form
 ``_counts_packed_call`` :302 that ``pmmh_chains`` reaches under ``vmap``)
-is K1 with the chain axis in the grid (``csrc/counts.cu``): row b of its
-``[B, N]`` counts equals K1 on row b bit for bit.
+is K1 with the chain axis in the grid, in three passes
+(``csrc/counts.cu``): row b of its ``[B, N]`` counts equals K1 on row b
+bit for bit.
 
 K7a (:func:`prefix_sum`, replacing ``prefix_sum`` :613) and K7b
 (:func:`cummax_int32`, replacing ``cummax_int32`` :480) are the same tile
 scan without the counts (``csrc/scan.cu``): every prefix of the port adds
 in one order (``scan_kernel.py:617-620`` of the JAX package), and
-``inference/resampling.py::_cumsum_ref`` replays it.  K7a runs that order
-in one launch, with its tile sums and flags in a workspace kept per
-device and stream, so a call allocates only its output.
+``inference/resampling.py::_cumsum_ref`` replays it.  K7a and K1 run that
+order in one launch, with their tile sums, maxima and flags in one
+workspace kept per device and stream, so a call allocates only its
+output.
 
 Each wrapper launches its kernel for CUDA tensors and raises for any device
 it cannot serve; for CPU tensors (the tests) it computes its ``*_ref``
@@ -70,23 +75,31 @@ def systematic_counts_fused(w: torch.Tensor, total: torch.Tensor,
                             u: torch.Tensor) -> torch.Tensor:
     """Monotone systematic counts ``int32 [N]`` from weights ``w [N]``,
     ``total = w.sum()`` and the uniform draw ``u`` (device scalars)."""
-    if w.device.type == "cpu":
-        return systematic_counts_fused_ref(w, total, u)
-    _check_flat(w, torch.float32, "w", "K1")
-    _check_scalar(total, "total", w.device)
-    _check_scalar(u, "u", w.device)
-    n = w.shape[0]
-    if not 0 < n < 2 ** 24:
+    if not w.is_cuda:
+        if w.device.type == "cpu":
+            return systematic_counts_fused_ref(w, total, u)
+        _check_flat(w, torch.float32, "w", "K1")         # raises
+    # the checks of _check_flat and _check_scalar without their costlier
+    # device tests
+    if not (w.dtype is torch.float32 and w.dim() == 1 and w.is_contiguous()
+            and w.numel()):
+        _check_flat(w, torch.float32, "w", "K1")         # raises
+    index = w.get_device()
+    for t, name in ((total, "total"), (u, "u")):
+        if not (t.is_cuda and t.get_device() == index
+                and t.dtype is torch.float32 and t.numel() == 1):
+            _check_scalar(t, name, w.device)             # raises
+    n = w.numel()
+    if n >= 2 ** 24:
         raise ValueError(f"N={n} outside (0, 2^24): counts are computed in "
                          "float32, exact below 2^24")
-    blocks = -(-n // _TILE)
+    stream = _build.cuda_stream(index)
+    ws = _scan_workspace(w, index, stream, -(-n // _TILE))
     counts = torch.empty(n, dtype=torch.int32, device=w.device)
-    bsum = torch.empty(blocks, dtype=torch.float64, device=w.device)
-    bmax = torch.empty(blocks, dtype=torch.int32, device=w.device)
     err = _build.lib().cssm_systematic_counts(
         w.data_ptr(), total.data_ptr(), u.data_ptr(), counts.data_ptr(),
-        bsum.data_ptr(), bmax.data_ptr(), n, w.device.index,
-        _build.cuda_stream(w.device))
+        ws.data_ptr(), (ws.numel() - 2) // 4, n, next(_SCAN_EPOCHS), index,
+        stream)
     _build.check(err, "cssm_systematic_counts")
     systematic_counts_fused.launches += 1
     return counts
@@ -145,12 +158,13 @@ def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
     return rs._cumsum_ref(x)
 
 
-# K7a's workspace per (device index, stream): [ticket, done, then a flag
-# and a tile sum per tile] as int64 words, zeroed once (csrc/scan.cuh, the
-# one-launch scan).  Calls on one stream run in order, and the kernel's
-# last block resets the counters, so a workspace needs no clearing between
-# calls; two streams never share one.  Each call tags its flags with a
-# fresh epoch.
+# The one-launch scan's workspace per (device index, stream), shared by K7a
+# and K1: [ticket, done, then a flag and a tile sum per tile, then a flag
+# and a tile maximum per tile] as int64 words, for a capacity of
+# (numel - 2) / 4 tiles, zeroed once (csrc/scan.cuh, the one-launch scan).
+# Calls on one stream run in order, and each kernel's last block resets the
+# counters, so a workspace needs no clearing between calls; two streams
+# never share one.  Each call tags its flags with a fresh epoch.
 _SCAN_WORKSPACES: dict = {}
 _SCAN_EPOCHS = itertools.count(1)
 _SCAN_MIN_TILES = 1024
@@ -160,8 +174,8 @@ def _scan_workspace(x: torch.Tensor, index: int, stream: int,
                     tiles: int) -> torch.Tensor:
     key = (index, stream)
     ws = _SCAN_WORKSPACES.get(key)
-    if ws is None or ws.numel() < 2 + 2 * tiles:
-        ws = torch.zeros(2 + 2 * max(tiles, _SCAN_MIN_TILES),
+    if ws is None or ws.numel() < 2 + 4 * tiles:
+        ws = torch.zeros(2 + 4 * max(tiles, _SCAN_MIN_TILES),
                          dtype=torch.int64, device=x.device)
         _SCAN_WORKSPACES[key] = ws
     return ws

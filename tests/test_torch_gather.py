@@ -14,8 +14,8 @@ import torch
 
 from composablestatespacemodels_torch.inference import resampling as trs
 from composablestatespacemodels_torch.ops.resample_kernel import (
-    sorted_gather_resample, sorted_gather_resample_t,
-    sorted_gather_resample_t_ref)
+    merge_path_ancestors_ref, sorted_gather_resample,
+    sorted_gather_resample_t, sorted_gather_resample_t_ref)
 from composablestatespacemodels_tpu.ops import resample_kernel as jrk
 
 N = 2048
@@ -41,12 +41,18 @@ def _counts(regime, n, seed):
 
 
 def _jax_gather(x, counts, block):
-    d = x.shape[0]
-    x8 = np.concatenate([x, np.zeros(((-d) % 8, x.shape[1]), np.float32)])
-    out = jrk.sorted_gather_resample_t(jnp.asarray(x8),
-                                       jnp.asarray(counts.numpy()),
+    """The JAX K4 in interpret mode, ``d`` padded to a multiple of 8 and N
+    to one of ``block`` (padded particles own the padded slots, so the
+    first N columns are the gather of the unpadded cloud)."""
+    d, n = x.shape
+    m = -(-n // block) * block
+    x8 = np.zeros((d + (-d) % 8, m), np.float32)
+    x8[:d, :n] = x
+    c = np.full(m, m, np.int32)
+    c[:n] = counts.numpy()
+    out = jrk.sorted_gather_resample_t(jnp.asarray(x8), jnp.asarray(c),
                                        block=block, interpret=True)
-    return np.asarray(out)[:d]
+    return np.asarray(out)[:d, :n]
 
 
 @pytest.mark.parametrize("regime", ["random", "heavy", "spike", "two_spikes",
@@ -55,6 +61,20 @@ def test_matches_jax_kernel_bitwise(regime):
     counts = _counts(regime, N, 7)
     x = np.random.default_rng(1).normal(size=(5, N)).astype(np.float32)
     got = sorted_gather_resample_t_ref(torch.from_numpy(x), counts).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  _jax_gather(x, counts, 1024).view(np.int32))
+
+
+@pytest.mark.parametrize("n,d", [(N, 5), (2 ** 13 + 5, 1)])
+@pytest.mark.parametrize("regime", ["random", "heavy", "spike", "two_spikes",
+                                    "last"])
+def test_merge_path_gather_matches_jax_kernel_bitwise(regime, n, d):
+    """The gather by K2's and K4's merge-path ancestors, as the CUDA kernel
+    expands them (``merge_path_ancestors_ref``), against the JAX K4 bit for
+    bit, also at an N that is no multiple of the merge tile and at d = 1."""
+    counts = _counts(regime, n, 9)
+    x = np.random.default_rng(d).normal(size=(d, n)).astype(np.float32)
+    got = x[:, merge_path_ancestors_ref(counts).numpy()]
     np.testing.assert_array_equal(got.view(np.int32),
                                   _jax_gather(x, counts, 1024).view(np.int32))
 

@@ -1,5 +1,7 @@
 """The plain versions of kernels K7a (prefix sum) and K7b (int32 running
-max), and the stratified counts built from them, against the JAX package.
+max), and the stratified counts built from them, against the JAX package;
+and K1's plain version where its one-launch scan carries the running max
+across tiles.
 
 * K7a's plain version accumulates in float64 (in the CUDA kernel's order)
   and rounds each entry once; the JAX kernel sums float32 blocks on the
@@ -19,7 +21,8 @@ import torch
 
 from composablestatespacemodels_torch.inference import resampling as trs
 from composablestatespacemodels_torch.ops.scan_kernel import (
-    cummax_int32, cummax_int32_ref, prefix_sum, prefix_sum_ref)
+    cummax_int32, cummax_int32_ref, prefix_sum, prefix_sum_ref,
+    systematic_counts_fused_ref)
 from composablestatespacemodels_tpu.inference import resampling as jrs
 from composablestatespacemodels_tpu.ops import scan_kernel as jsk
 
@@ -146,3 +149,34 @@ def test_wrappers_use_plain_versions_only_on_cpu():
         trs._cumsum(x.to("meta"))
     with pytest.raises(ValueError, match="no resampling path"):
         trs._monotone_counts(c.to("meta"))
+
+
+@pytest.mark.parametrize("u", [0.0, 0.37, 0.999])
+def test_counts_carry_across_tiles_matches_jax_kernel(u):
+    """K1's plain version against the JAX K1 (interpret mode) at N = 9000,
+    three of the CUDA kernel's 4096-element tiles, on weights whose
+    negative runs cross both tile boundaries: the counts fall from one tile
+    into the next, so the running-max carry across tiles changes values.
+    The weights are multiples of 2^-12 with a power-of-two total, so every
+    prefix is exact in both packages and the counts agree bit for bit."""
+    n = 9000
+    rng = np.random.default_rng(8)
+    k = rng.integers(0, 2, n)
+    for edge in (4096, 8192):
+        k[edge - 150:edge + 150] = -2
+    k[-1] += 2 ** 12 - k.sum()
+    w = (8 * k).astype(np.float32)
+    total = np.float32(2 ** 15)
+    got = systematic_counts_fused_ref(torch.from_numpy(w),
+                                      torch.tensor(total),
+                                      torch.tensor(np.float32(u))).numpy()
+    want = np.asarray(jsk.systematic_counts_fused(
+        jnp.asarray(w), total, jnp.float32(u), interpret=True))
+    np.testing.assert_array_equal(got, want)
+    # before the running max, counts in tiles 1 and 2 lie below the
+    # maximum of the tiles before them
+    cdf = np.cumsum(w.astype(np.float64)) / float(total)
+    c0 = np.clip(np.ceil(n * cdf - u), 0, n)
+    for edge in (4096, 8192):
+        assert c0[edge:edge + 100].max() < c0[:edge].max()
+        assert (got[edge:edge + 100] == c0[:edge].max()).all()
