@@ -26,12 +26,12 @@
 // one, two or four columns with up to eight rows each, smaller and larger
 // merge tiles, and the same loop over an int32 column count, which spills,
 // at d = 1, 7 and 13.)  32 registers a thread, no spills: eight blocks of
-// 256 on an SM, so the grid at N = 2^20 (1024 blocks) runs in one wave.  Writes are
-// coalesced (neighbouring threads, neighbouring columns) and reads follow
-// nondecreasing ancestors, so neighbouring threads read neighbouring or
-// equal addresses; a heavy ancestor's column is read by many threads at
-// once (one transaction).  Heavy and spike counts give some blocks
-// kMergeTile output columns and others none, which the grid does not
+// 256 on an SM, so the grid at N = 2^20 (1024 blocks) runs in one wave.
+// Writes are coalesced (neighbouring threads, neighbouring columns) and
+// reads follow nondecreasing ancestors, so neighbouring threads read
+// neighbouring or equal addresses; a heavy ancestor's column is read by
+// many threads at once (one transaction).  Heavy and spike counts give some
+// blocks kMergeTile output columns and others none, which the grid does not
 // balance.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,10 +41,9 @@
 namespace cssm {
 
 // A block has at most kMergeTile output slots, so thread t takes slots
-// t, t + kMergeThreads, ... (kGatherCols of them) in one pass, and loads
-// kGatherRows rows of them before it stores any.
+// t, t + kMergeThreads, ... (kGatherCols of them) and, row by row, loads
+// the row's values of all of them before it stores any.
 constexpr int kGatherCols = kMergeTile / kMergeThreads;
-constexpr int kGatherRows = 1;
 
 __global__ void __launch_bounds__(kMergeThreads, 8)
     gather_kernel(const float* __restrict__ x, const int* __restrict__ counts,
@@ -53,33 +52,25 @@ __global__ void __launch_bounds__(kMergeThreads, 8)
   __shared__ int anc[kMergeTile];
   __shared__ int64_t split[2];
   const MergeSlots slots = merge_path_ancestors(counts, n, stage, anc, split);
-  for (int k = threadIdx.x; k < slots.nb;
-       k += kGatherCols * kMergeThreads) {
-    int64_t src[kGatherCols];
-    bool live[kGatherCols];
+  const int k = threadIdx.x;
+  if (k >= slots.nb) return;
+  int64_t src[kGatherCols];
+  bool live[kGatherCols];
+#pragma unroll
+  for (int c = 0; c < kGatherCols; ++c) {
+    live[c] = k + c * kMergeThreads < slots.nb;
+    src[c] = live[c] ? anc[k + c * kMergeThreads] : 0;
+  }
+  for (int r = 0; r < d; ++r) {
+    const int64_t row = (int64_t)r * n;
+    float v[kGatherCols];
 #pragma unroll
     for (int c = 0; c < kGatherCols; ++c) {
-      live[c] = k + c * kMergeThreads < slots.nb;
-      src[c] = live[c] ? anc[k + c * kMergeThreads] : 0;
+      v[c] = live[c] ? __ldg(x + row + src[c]) : 0.f;
     }
-    for (int r0 = 0; r0 < d; r0 += kGatherRows) {
-      float v[kGatherCols][kGatherRows];
 #pragma unroll
-      for (int q = 0; q < kGatherRows; ++q) {
-        const int64_t row = (int64_t)(r0 + q) * n;
-#pragma unroll
-        for (int c = 0; c < kGatherCols; ++c) {
-          v[c][q] = live[c] && r0 + q < d ? __ldg(x + row + src[c]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kGatherRows; ++q) {
-        const int64_t row = (int64_t)(r0 + q) * n + slots.j0 + k;
-#pragma unroll
-        for (int c = 0; c < kGatherCols; ++c) {
-          if (live[c] && r0 + q < d) y[row + c * kMergeThreads] = v[c][q];
-        }
-      }
+    for (int c = 0; c < kGatherCols; ++c) {
+      if (live[c]) y[row + slots.j0 + k + c * kMergeThreads] = v[c];
     }
   }
 }

@@ -282,16 +282,22 @@ def test_edge_interval_save_matches_jax_route(route):
     assert got[1] == (s[-1] if route == "clamp" else s[0])
 
 
+@functools.lru_cache(maxsize=None)
+def _edge_case():
+    """The oracle and its JAX data at T = 5, simulated once per module."""
+    jm, jp, tm, tp = both("oracle")
+    data = cj.simulate_regular(jm, jp, jax.random.PRNGKey(3),
+                               5).to_timeseries()
+    return jm, jp, tm, tp, data, to_torch_series(data.ts, data.ys, data.mask)
+
+
 @pytest.mark.parametrize("scheme", CLAMP_SCHEMES + WRAP_SCHEMES)
 def test_edge_interval_eta_lower_follows_jax_route(scheme):
     """The oracle (eta = x) at N = 4, interval 0.2, T = 5.  State levels
     are the cloud's maximum on both routes; eta_lower is the maximum too
     on the clamp route, the minimum (eta_upper) on the wrap route.  The
     JAX package's own ``"systematic"`` filter shows the clamp."""
-    jm, jp, tm, tp = both("oracle")
-    data = cj.simulate_regular(jm, jp, jax.random.PRNGKey(3),
-                               5).to_timeseries()
-    series = to_torch_series(data.ts, data.ys, data.mask)
+    jm, jp, tm, tp, data, series = _edge_case()
     resample = ((lambda g, w: torch.arange(w.shape[0]))
                 if scheme == "callable" else scheme)
     s = ct.bootstrap_filter(tm, tp, series, 4,
