@@ -35,14 +35,20 @@
 // lane-replicated scalars do not carry over: the output is flat int32 [N],
 // which K2 and K4 read.
 //
-// K6 batched is K1 with the chain axis in the grid: grid (tiles, B), row b
-// reads w[b, :], total[b] and u[b] and writes counts[b, :], in scan.cuh's
-// three passes (tile_sums, counts_scan, cummax_carry), which add and max
-// in the same orders.  Row b therefore equals K1 on row b bit for bit.  At
-// the PMMH shape (N = 100, B = 256) every row is one tile: 2 launches of
-// 256 blocks, launch latency rather than bytes (100 KiB in, 100 KiB out).
-// The TPU packs several chains into one block-diagonal MXU pass; on Hopper
-// one block per row does it.
+// K6 batched is K1 on each row of [B, N]: row b reads w[b, :], total[b]
+// and u[b] and writes counts[b, :], adding and maxing in K1's orders, so
+// row b equals K1 on row b bit for bit.  At PMMH's shapes (N = 100 to
+// 1024, B = 256) every row is one tile, and the call is launch latency
+// rather than bytes (100 KiB in, 100 KiB out at [256, 100]).  A row of
+// n <= kTile needs no tile sums (no tile comes before it) and only
+// ceil(n / 128) warps of the tile (scan.cuh, short tiles), so such a call
+// is one launch of counts_short_rows with no workspace: one block of
+// ceil(n / 128) warps per row, or, for n <= 128, one warp per row and
+// kShortRows rows to a block, with no barrier.  Rows longer than a tile
+// keep scan.cuh's three passes (tile_sums, counts_scan, cummax_carry):
+// three launches and a workspace of tile sums and maxima.  The TPU packs
+// several chains into one block-diagonal MXU pass; on Hopper a block, or a
+// warp, per row does it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,14 +69,6 @@ struct NormalisedWeight {
     return __fdiv_rn(__ldg(w + i), __ldg(total));
   }
 };
-
-// clip(ceil(n*cdf - u), 0, n) of element i, n at i == n - 1.
-__device__ __forceinline__ int systematic_count(float cdf, float u, float nf,
-                                                int64_t i, int64_t n) {
-  float v = ceilf(__fsub_rn(__fmul_rn(nf, cdf), u));
-  v = fminf(fmaxf(v, 0.f), nf);
-  return i == n - 1 ? (int)n : (int)v;
-}
 
 // K1 in one launch: see scan.cuh's one-launch scan for the workspace,
 // tickets and flags.
@@ -145,6 +143,76 @@ __global__ void __launch_bounds__(kThreads)
   finish_tile(ws, tiles);
 }
 
+// K6 batched on rows of n <= kTile in one launch.  A group of `warps` =
+// ceil(n / 128) warps scans one row, thread t holding the row's items
+// 4t..4t+3 as in K1's tile; with warps == 1 a block holds several groups
+// (rows), each a warp on its own.
+__global__ void __launch_bounds__(kThreads)
+    counts_short_rows(const float* __restrict__ w,
+                      const float* __restrict__ total,
+                      const float* __restrict__ u, int* __restrict__ counts,
+                      int64_t rows, int64_t n, int warps) {
+  __shared__ double dsm[kWarps];
+  __shared__ int ism[kWarps];
+  const int group = threadIdx.x / (32 * warps);
+  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / (32 * warps)) +
+                      group;
+  if (row >= rows) return;  // whole groups: only for warps == 1, no barrier
+  const int64_t base = (int64_t)(threadIdx.x - group * 32 * warps) * kItems;
+  const bool whole = base + kItems <= n;
+  w += row * n;
+  counts += row * n;
+  float raw[kItems];
+  if (whole && ((uintptr_t)(w + base) & 15) == 0) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(w + base));
+    raw[0] = q.x;
+    raw[1] = q.y;
+    raw[2] = q.z;
+    raw[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      raw[k] = base + k < n ? __ldg(w + base + k) : 0.f;
+    }
+  }
+  const float tot = __ldg(total + row);
+  float v[kItems];
+  double tsum = 0.0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    v[k] = base + k < n ? __fdiv_rn(raw[k], tot) : 0.f;
+    tsum += (double)v[k];
+  }
+  // tile_prefix's order: the offset (0.0: no tile before), the tile's
+  // exclusive scan, the items
+  double p = block_exclusive_sum(tsum, dsm, warps);
+  const float uu = __ldg(u + row);
+  const float nf = (float)n;
+  int c[kItems];
+  int run = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    p += (double)v[k];
+    const int ck = base + k < n ? systematic_count(__double2float_rn(p), uu,
+                                                   nf, base + k, n)
+                                : INT_MIN;
+    run = max(run, ck);
+    c[k] = run;
+  }
+  const int ex = block_exclusive_max(run, ism, warps);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) c[k] = max(c[k], ex);
+  if (whole && ((uintptr_t)(counts + base) & 15) == 0) {
+    *reinterpret_cast<int4*>(counts + base) = make_int4(c[0], c[1], c[2],
+                                                        c[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (base + k < n) counts[base + k] = c[k];
+    }
+  }
+}
+
 // Pass 2 of K6 batched.  Grid (tiles, rows): tile blockIdx.x of row
 // blockIdx.y.
 __global__ void __launch_bounds__(kThreads)
@@ -196,26 +264,40 @@ extern "C" int cssm_systematic_counts(const void* w, const void* total,
   return (int)cudaGetLastError();
 }
 
-// K6 batched: w [rows, n], total [rows], u [rows] -> counts [rows, n] in
-// three passes; bsum and bmax hold rows x tiles entries.
+// K6 batched: w [rows, n], total [rows], u [rows] -> counts [rows, n].
+// Rows of n <= kTile: one launch, bsum and bmax unused (may be null); rows
+// of n <= 128 go kShortRows to a block.  Longer rows: three passes, bsum
+// and bmax hold rows x tiles entries.  Sets the device only when it is not
+// the current one.
 extern "C" int cssm_systematic_counts_batched(const void* w, const void* total,
                                               const void* u, void* counts,
                                               void* bsum, void* bmax,
                                               int64_t rows, int64_t n,
-                                              int device, void* stream) {
+                                              int short_rows, int device,
+                                              void* stream) {
   using namespace cssm;
-  cudaError_t err = cudaSetDevice(device);
+  int current;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)rows);
+  if (rows <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (n <= kTile) {
+    const int warps = (int)((n + 32 * kItems - 1) / (32 * kItems));
+    const int per_block = warps == 1 ? short_rows : 1;
+    counts_short_rows<<<(unsigned)((rows + per_block - 1) / per_block),
+                        32 * warps * per_block, 0, s>>>(
+        (const float*)w, (const float*)total, (const float*)u, (int*)counts,
+        rows, n, warps);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)rows);
   const NormalisedWeight load{(const float*)w, (const float*)total, n};
   tile_sums<<<grid, kThreads, 0, s>>>(load, (double*)bsum, n);
   counts_scan<<<grid, kThreads, 0, s>>>(load, (const float*)u,
                                         (const double*)bsum, (int*)counts,
                                         (int*)bmax, n);
-  if (grid.x > 1) {
-    cummax_carry<int><<<dim3(grid.x - 1, grid.y), kThreads, 0, s>>>(
-        (int*)counts, (const int*)bmax, n);
-  }
+  cummax_carry<int><<<dim3(grid.x - 1, grid.y), kThreads, 0, s>>>(
+      (int*)counts, (const int*)bmax, n);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,8 @@
 // share this header: a fixed tile of kThreads x kItems elements, a float64
 // prefix rounded to float32 per entry, and an exact int32 running max.  The
 // TPU walks its grid in order and carries the prefix and the running max in
-// SMEM; Hopper blocks run in parallel.  K6 batched and K7b scan in passes:
+// SMEM; Hopper blocks run in parallel.  K7b, and K6 batched on rows longer
+// than a tile, scan in passes:
 //   1. tile_sums: each tile's float64 sum;
 //   2. tile_prefix (+ tile_cummax_store): each tile adds up the sums of the
 //      tiles before it, scans its own elements and, for the running max,
@@ -22,6 +23,9 @@
 // bits.  K1 then publishes its tile maximum under a second flag and takes
 // the maximum of the tiles before it (publish_and_carry): pass 3's carry,
 // without a second read or write of the counts.
+// A row of at most one tile needs no pass 1 (no tile comes before it) and
+// only ceil(n / 128) of the tile's warps (short tiles, below): K6 batched
+// on such rows and K8 run blocks sized to the row with the same bits.
 // Every float64 addition has a fixed association order (warp shuffles in a
 // fixed tree, no atomics in the sums), which the plain PyTorch version
 // (inference/resampling.py::_cumsum_ref) replays: kernel and plain version
@@ -30,8 +34,7 @@
 // A scan may run over several independent rows at once (K6 batched: one row
 // per chain): the grid is (tiles, rows), blockIdx.y is the row, and a Load
 // functor's row(r) binds it to row r.  The device functions take the tile
-// index and the row's pointers from their caller, so K8 runs one tile of a
-// row inside its own block.
+// index and the row's pointers from their caller.
 #pragma once
 #include <climits>
 #include <stdint.h>
@@ -44,13 +47,40 @@ constexpr int kTile = kThreads * kItems;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ double block_sum(double v, double* smem) {
+// ---- Short tiles ---------------------------------------------------------
+//
+// A row of n <= kTile elements fills only the first ceil(n / 128) warps of
+// the tile; the threads past them hold items past n, which the sums take as
+// +0.0 and the running max as INT_MIN.  So a block of `warps` >= ceil(n /
+// 128) warps computes the tile's bits (K6 batched on short rows, K8): the
+// block helpers below take the number of warps in the block (kWarps by
+// default, the whole tile) and their second tree reads the warps' values
+// from shared memory below `warps` and an identity above it (0.0, INT_MIN;
+// for the float maximum NaN, which fmaxf drops).  For the sum that is the
+// 1024-thread tree on the very values the dropped warps would add, +0.0;
+// the inclusive scans go by __shfl_up, which never carries a higher lane
+// into a lower one.  With warps == 1 each warp stands alone, with no shared
+// memory and no barrier: its sum is its warp's tree plus +0.0, which is
+// exact because no sum of this header's is -0.0 (each starts from +0.0),
+// and its exclusive scan is 0.0 + its lanes', likewise exact.
+
+__device__ __forceinline__ void block_sync(int warps) {
+  if (warps == 1) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ double block_sum(double v, double* smem,
+                                            int warps = kWarps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  if (warps == 1) return __shfl_sync(kFull, v, 0);
   if (lane == 0) smem[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    double t = smem[lane];
+    double t = lane < warps ? smem[lane] : 0.0;
     for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(kFull, t, o);
     if (lane == 0) smem[0] = t;
   }
@@ -60,13 +90,15 @@ __device__ __forceinline__ double block_sum(double v, double* smem) {
   return total;
 }
 
-__device__ __forceinline__ int block_max(int v, int* smem) {
+__device__ __forceinline__ int block_max(int v, int* smem,
+                                         int warps = kWarps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_down_sync(kFull, v, o));
+  if (warps == 1) return __shfl_sync(kFull, v, 0);
   if (lane == 0) smem[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    int t = smem[lane];
+    int t = lane < warps ? smem[lane] : INT_MIN;
     for (int o = 16; o > 0; o >>= 1) t = max(t, __shfl_down_sync(kFull, t, o));
     if (lane == 0) smem[0] = t;
   }
@@ -76,14 +108,18 @@ __device__ __forceinline__ int block_max(int v, int* smem) {
   return m;
 }
 
-// The maximum over the block (fmaxf: a NaN loses to a number).
-__device__ __forceinline__ float block_max(float v, float* smem) {
+// The maximum over the block (fmaxf: a NaN loses to a number, so the result
+// is the largest number passed, NaN only if every value is NaN, in any
+// order of the tree).
+__device__ __forceinline__ float block_max(float v, float* smem,
+                                           int warps = kWarps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(kFull, v, o));
+  if (warps == 1) return __shfl_sync(kFull, v, 0);
   if (lane == 0) smem[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    float t = smem[lane];
+    float t = lane < warps ? smem[lane] : __int_as_float(0x7fffffff);
     for (int o = 16; o > 0; o >>= 1) {
       t = fmaxf(t, __shfl_down_sync(kFull, t, o));
     }
@@ -95,17 +131,21 @@ __device__ __forceinline__ float block_max(float v, float* smem) {
   return m;
 }
 
-__device__ __forceinline__ double block_exclusive_sum(double v, double* smem) {
+__device__ __forceinline__ double block_exclusive_sum(double v, double* smem,
+                                                      int warps = kWarps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   double incl = v;
   for (int o = 1; o < 32; o <<= 1) {
     const double t = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl += t;
   }
+  double ex = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) ex = 0.0;
+  if (warps == 1) return ex;
   if (lane == 31) smem[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    double wi = smem[lane];
+    double wi = lane < warps ? smem[lane] : 0.0;
     for (int o = 1; o < 32; o <<= 1) {
       const double t = __shfl_up_sync(kFull, wi, o);
       if (lane >= o) wi += t;
@@ -114,24 +154,26 @@ __device__ __forceinline__ double block_exclusive_sum(double v, double* smem) {
     smem[lane] = lane == 0 ? 0.0 : we;
   }
   __syncthreads();
-  double ex = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) ex = 0.0;
   const double res = smem[warp] + ex;
   __syncthreads();
   return res;
 }
 
-__device__ __forceinline__ int block_exclusive_max(int v, int* smem) {
+__device__ __forceinline__ int block_exclusive_max(int v, int* smem,
+                                                   int warps = kWarps) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int incl = v;
   for (int o = 1; o < 32; o <<= 1) {
     const int t = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl = max(incl, t);
   }
+  int ex = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) ex = INT_MIN;
+  if (warps == 1) return ex;
   if (lane == 31) smem[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int wi = smem[lane];
+    int wi = lane < warps ? smem[lane] : INT_MIN;
     for (int o = 1; o < 32; o <<= 1) {
       const int t = __shfl_up_sync(kFull, wi, o);
       if (lane >= o) wi = max(wi, t);
@@ -140,11 +182,18 @@ __device__ __forceinline__ int block_exclusive_max(int v, int* smem) {
     smem[lane] = lane == 0 ? INT_MIN : we;
   }
   __syncthreads();
-  int ex = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) ex = INT_MIN;
   const int res = max(smem[warp], ex);
   __syncthreads();
   return res;
+}
+
+// clip(ceil(n*cdf - u), 0, n) of element i, n at i == n - 1: K1's count,
+// with n*cdf and - u rounded separately as the plain version rounds them.
+__device__ __forceinline__ int systematic_count(float cdf, float u, float nf,
+                                                int64_t i, int64_t n) {
+  float v = ceilf(__fsub_rn(__fmul_rn(nf, cdf), u));
+  v = fminf(fmaxf(v, 0.f), nf);
+  return i == n - 1 ? (int)n : (int)v;
 }
 
 // This thread's float64 sum of its kItems values of tile `tile`, in order.

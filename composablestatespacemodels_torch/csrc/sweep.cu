@@ -50,21 +50,6 @@
 
 namespace cssm {
 
-// u[i] from shared memory.
-struct SharedValues {
-  const float* u;
-  __device__ __forceinline__ float operator()(int64_t i) const { return u[i]; }
-};
-
-// u[i] / total, rounded as the plain version's float32 division.
-struct SharedNormalised {
-  const float* u;
-  float total;
-  __device__ __forceinline__ float operator()(int64_t i) const {
-    return __fdiv_rn(u[i], total);
-  }
-};
-
 // The resampling uniform of (step t, chain b), in (0, 1): the top 24 bits
 // of Philox word 0, as Box-Muller's u1.
 __device__ __forceinline__ float step_uniform(uint32_t seed, uint32_t t,
@@ -75,41 +60,56 @@ __device__ __forceinline__ float step_uniform(uint32_t seed, uint32_t t,
                    2.98023223876953125e-08f);
 }
 
-template <int FAMILY>
-__global__ void __launch_bounds__(kThreads) sweep_kernel(
-    const float* __restrict__ x0, const float* __restrict__ coef,
-    const float* __restrict__ design, const float* __restrict__ wconsts,
-    const int* __restrict__ mask, const int* __restrict__ seed_p,
-    float* __restrict__ ll_out, float* __restrict__ x_final, int d, int n,
-    int steps, int kc, float log_n) {
+// Threads of a chain's block for n particles, P to a thread: whole warps.
+template <int P>
+__host__ __device__ __forceinline__ int sweep_threads(int n) {
+  return 32 * ((n + 32 * P - 1) / (32 * P));
+}
+
+// One chain per block of sweep_threads<P>(n) threads; thread t owns
+// particles P*t .. P*t + P - 1.
+template <int FAMILY, int P>
+__global__ void __launch_bounds__(P == 1 ? kThreads : kThreads / kItems)
+    sweep_kernel(const float* __restrict__ x0, const float* __restrict__ coef,
+                 const float* __restrict__ design,
+                 const float* __restrict__ wconsts,
+                 const int* __restrict__ mask, const int* __restrict__ seed_p,
+                 float* __restrict__ ll_out, float* __restrict__ x_final,
+                 int d, int n, int steps, int kc, float log_n) {
+  static_assert(P == 1 || P == kItems, "one particle a thread, or a tile's");
   extern __shared__ float smem[];
   __shared__ double dsm[kWarps];
   __shared__ float fsm[kWarps];
   __shared__ int ism[kWarps];
-  __shared__ int tile_max;
-  const int chain = blockIdx.x, chains = gridDim.x, j = threadIdx.x;
+  const int chain = blockIdx.x, chains = gridDim.x, tid = threadIdx.x;
+  const int warps = blockDim.x >> 5;
   const int64_t dn = (int64_t)d * n;
   float* x = smem;
   float* y = x + dn;
-  float* u = y + dn;
-  int* counts = (int*)(u + n);
+  float* u = y + dn;  // P == 1: the weights on their way to the tile layout
+  int* counts = (int*)(u + (P == 1 ? n : 0));
   const uint32_t seed = (uint32_t)__ldg(seed_p);
   const float nf = (float)n;
-  if (j < n) {
-    for (int r = 0; r < d; ++r) {
-      x[r * n + j] = __ldg(x0 + chain * dn + r * n + j);
-    }
+  for (int64_t i = tid; i < dn; i += blockDim.x) {
+    x[i] = __ldg(x0 + chain * dn + i);
   }
+  // the maximum's start: -inf stands for the particle slots that a
+  // 1024-thread block leaves empty below n = 1024, NaN (which fmaxf
+  // drops) for none, so the maximum is that of the 1024-thread block
+  const float lw_floor = n < kThreads ? -INFINITY : __int_as_float(0x7fffffff);
+  block_sync(warps);
   float ll = 0.f;
   for (int t = 0; t < steps; ++t) {
     const float* cf = coef + ((int64_t)t * chains + chain) * d * 3;
     const float* g = design + (int64_t)t * d;
     const bool observed = __ldg(mask + t) != 0;
-    // 1-2. propagate this thread's particle, then its log-weight
-    float lw = -INFINITY;
-    if (j < n) {
-      float gamma = 0.f;
-      for (int r0 = 0; r0 < d; r0 += 4) {
+    // 1-2. propagate this thread's particles, then their log-weights
+    float gamma[P] = {};
+    for (int r0 = 0; r0 < d; r0 += 4) {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const int j = P * tid + k;
+        if (j >= n) continue;
         const uint4 bits = philox4x32_10(
             make_uint4((uint32_t)j, (uint32_t)(r0 >> 2), (uint32_t)t,
                        (uint32_t)chain),
@@ -118,76 +118,116 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
         box_muller(bits.x, bits.y, z[0], z[1]);
         box_muller(bits.z, bits.w, z[2], z[3]);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int r = r0 + k;
+        for (int q = 0; q < 4; ++q) {
+          const int r = r0 + q;
           if (r < d) {
             const float v = affine_step(__ldg(cf + 3 * r), x[r * n + j],
                                         __ldg(cf + 3 * r + 1),
-                                        __ldg(cf + 3 * r + 2), z[k]);
+                                        __ldg(cf + 3 * r + 2), z[q]);
             x[r * n + j] = v;
             const float gv = __fmul_rn(__ldg(g + r), v);
-            gamma = r == 0 ? gv : __fadd_rn(gamma, gv);
+            gamma[k] = r == 0 ? gv : __fadd_rn(gamma[k], gv);
           }
         }
       }
-      if (observed) {
-        lw = obs_log_density<FAMILY>(
-            gamma, wconsts + ((int64_t)t * chains + chain) * kc);
-      } else {
-        lw = 0.f;
+    }
+    float lw[P];
+    float m = lw_floor;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      lw[k] = -INFINITY;
+      if (P * tid + k < n) {
+        lw[k] = observed
+                    ? obs_log_density<FAMILY>(
+                          gamma[k],
+                          wconsts + ((int64_t)t * chains + chain) * kc)
+                    : 0.f;
+        m = fmaxf(m, lw[k]);
       }
     }
-    // 3. max, the float64 sum of u in scan.cuh's order, the ll
-    const float maxw = block_max(lw, fsm);
-    if (j < n) u[j] = expf(__fsub_rn(lw, maxw));
-    __syncthreads();
-    const float total =
-        __double2float_rn(block_sum(thread_sum(SharedValues{u}, n, 0), dsm));
+    // 3. max, the float64 sum of u in scan.cuh's order, the ll; v[k] is
+    // item 4 * tid + k of the tile
+    const float maxw = block_max(m, fsm, warps);
+    float v[kItems];
+    if (P == kItems) {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        v[k] = P * tid + k < n ? expf(__fsub_rn(lw[k], maxw)) : 0.f;
+      }
+    } else {
+      if (tid < n) u[tid] = expf(__fsub_rn(lw[0], maxw));
+      block_sync(warps);
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        v[k] = kItems * tid + k < n ? u[kItems * tid + k] : 0.f;
+      }
+    }
+    double tsum = 0.0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) tsum += (double)v[k];
+    const float total = __double2float_rn(block_sum(tsum, dsm, warps));
     if (observed) {
       ll = __fadd_rn(ll, __fsub_rn(__fadd_rn(maxw, logf(total)), log_n));
     }
-    // 4. systematic counts and their running max (K1's arithmetic)
-    float cdf[kItems];
-    tile_prefix(SharedNormalised{u, total}, nullptr, n, 0, cdf, dsm);
-    const float ud = step_uniform(seed, (uint32_t)t, (uint32_t)chain);
-    int c[kItems];
+    // 4. systematic counts and their running max (K1's arithmetic, in
+    // tile_prefix's order with offset 0.0), stored to shared memory
+    const int64_t base = (int64_t)tid * kItems;
+    double s = 0.0;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      float v = ceilf(__fsub_rn(__fmul_rn(nf, cdf[k]), ud));
-      v = fminf(fmaxf(v, 0.f), nf);
-      c[k] = (int)threadIdx.x * kItems + k == n - 1 ? n : (int)v;
+      v[k] = base + k < n ? __fdiv_rn(v[k], total) : 0.f;
+      s += (double)v[k];
     }
-    tile_cummax_store(c, counts, &tile_max, n, 0, ism);
-    __syncthreads();
+    double pre = block_exclusive_sum(s, dsm, warps);
+    const float ud = step_uniform(seed, (uint32_t)t, (uint32_t)chain);
+    int c[kItems];
+    int run = INT_MIN;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      pre += (double)v[k];
+      const int ck = base + k < n ? systematic_count(__double2float_rn(pre),
+                                                     ud, nf, base + k, n)
+                                  : INT_MIN;
+      run = max(run, ck);
+      c[k] = run;
+    }
+    const int ex = block_exclusive_max(run, ism, warps);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (base + k < n) counts[base + k] = max(c[k], ex);
+    }
+    block_sync(warps);
     // 5-6. ancestors from the counts in shared memory; gather into y
-    if (j < n) {
-      const int64_t anc = upper_bound(counts, n, j);
-      for (int r = 0; r < d; ++r) y[r * n + j] = x[r * n + anc];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int j = P * tid + k;
+      if (j < n) {
+        const int64_t anc = upper_bound(counts, n, j);
+        for (int r = 0; r < d; ++r) y[r * n + j] = x[r * n + anc];
+      }
     }
-    __syncthreads();
+    block_sync(warps);
     float* swap = x;
     x = y;
     y = swap;
   }
-  if (j < n) {
-    for (int r = 0; r < d; ++r) {
-      x_final[chain * dn + r * n + j] = x[r * n + j];
-    }
+  for (int64_t i = tid; i < dn; i += blockDim.x) {
+    x_final[chain * dn + i] = x[i];
   }
-  if (j == 0) ll_out[chain] = ll;
+  if (tid == 0) ll_out[chain] = ll;
 }
 
-template <int FAMILY>
+template <int FAMILY, int P>
 int launch_sweep(const float* x0, const float* coef, const float* design,
                  const float* wconsts, const int* mask, const int* seed,
                  float* ll, float* x_final, int chains, int d, int n,
-                 int steps, int kc, float log_n, size_t smem,
-                 cudaStream_t s) {
+                 int steps, int kc, float log_n, cudaStream_t s) {
+  const size_t smem = (size_t)(2 * d + (P == 1 ? 2 : 1)) * n * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<FAMILY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_kernel<FAMILY, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sweep_kernel<FAMILY><<<chains, kThreads, smem, s>>>(
+  sweep_kernel<FAMILY, P><<<chains, sweep_threads<P>(n), smem, s>>>(
       x0, coef, design, wconsts, mask, seed, ll, x_final, d, n, steps, kc,
       log_n);
   return (int)cudaGetLastError();
@@ -202,12 +242,14 @@ extern "C" int cssm_pf_sweep_chains(const void* x0, const void* coef,
                                     const void* mask, const void* seed,
                                     void* ll, void* x_final, int chains,
                                     int d, int n, int steps, int kc,
-                                    float log_n, int family, int device,
-                                    void* stream) {
+                                    float log_n, int family, int per_thread,
+                                    int device, void* stream) {
   using namespace cssm;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(2 * d + 2) * n * sizeof(float);
+  if (n <= 0 || n > kThreads || (per_thread != 1 && per_thread != kItems)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const auto* xp = (const float*)x0;
   const auto* cp = (const float*)coef;
   const auto* gp = (const float*)design;
@@ -216,8 +258,13 @@ extern "C" int cssm_pf_sweep_chains(const void* x0, const void* coef,
   const auto* sp = (const int*)seed;
   cudaStream_t s = (cudaStream_t)stream;
   return dispatch_family(family, [&](auto fam) {
-    return launch_sweep<decltype(fam)::value>(
-        xp, cp, gp, wp, mp, sp, (float*)ll, (float*)x_final, chains, d, n,
-        steps, kc, log_n, smem, s);
+    constexpr int F = decltype(fam)::value;
+    return per_thread == 1
+               ? launch_sweep<F, 1>(xp, cp, gp, wp, mp, sp, (float*)ll,
+                                    (float*)x_final, chains, d, n, steps, kc,
+                                    log_n, s)
+               : launch_sweep<F, kItems>(xp, cp, gp, wp, mp, sp, (float*)ll,
+                                         (float*)x_final, chains, d, n, steps,
+                                         kc, log_n, s);
   });
 }

@@ -19,9 +19,11 @@ the host.
 
 K6 batched (:func:`systematic_counts_batched`, replacing the batched form
 ``_counts_packed_call`` :302 that ``pmmh_chains`` reaches under ``vmap``)
-is K1 with the chain axis in the grid, in three passes
-(``csrc/counts.cu``): row b of its ``[B, N]`` counts equals K1 on row b
-bit for bit.
+is K1 on every row (``csrc/counts.cu``): row b of its ``[B, N]`` counts
+equals K1 on row b bit for bit.  Rows of at most one tile (N <= 4096, all
+of PMMH's) take one launch with no workspace, on blocks sized to the row
+(``ceil(N / 128)`` warps, or a warp per row for N <= 128); longer rows take
+the three passes.
 
 K7a (:func:`prefix_sum`, replacing ``prefix_sum`` :613) and K7b
 (:func:`cummax_int32`, replacing ``cummax_int32`` :480) are the same tile
@@ -116,15 +118,21 @@ def systematic_counts_batched_ref(w: torch.Tensor, total: torch.Tensor,
                                u[:, None], w.shape[-1])
 
 
+# K6 batched on rows of n <= 128: rows (one warp each) to a block
+# (csrc/counts.cu)
+_SHORT_ROWS = 4
+
+
 def systematic_counts_batched(w: torch.Tensor, total: torch.Tensor,
                               u: torch.Tensor) -> torch.Tensor:
     """Monotone systematic counts ``int32 [B, N]`` for B chains: row b from
-    ``w[b]``, ``total[b] = w[b].sum()`` and the uniform ``u[b]``."""
-    if w.device.type == "cpu":
-        return systematic_counts_batched_ref(w, total, u)
-    if w.device.type != "cuda":
+    ``w[b]``, ``total[b] = w[b].sum()`` and the uniform ``u[b]``.  One
+    kernel launch for rows of N <= 4096, three for longer rows."""
+    if not w.is_cuda:
+        if w.device.type == "cpu":
+            return systematic_counts_batched_ref(w, total, u)
         raise ValueError(f"no K6 batched kernel for device {w.device}")
-    if w.dtype != torch.float32 or w.ndim != 2 or not w.is_contiguous():
+    if not (w.dtype is torch.float32 and w.dim() == 2 and w.is_contiguous()):
         raise ValueError("w must be a contiguous float32 [B, N] tensor, got "
                          f"{w.dtype} {tuple(w.shape)}")
     b, n = w.shape
@@ -132,19 +140,24 @@ def systematic_counts_batched(w: torch.Tensor, total: torch.Tensor,
         raise ValueError(f"[B, N] = [{b}, {n}] outside B in (0, 2^16) (the "
                          "grid's second axis), N in (0, 2^24) (counts exact "
                          "in float32)")
+    index = w.get_device()
     for t, name in ((total, "total"), (u, "u")):
-        if (t.device != w.device or t.dtype != torch.float32
-                or tuple(t.shape) != (b,) or not t.is_contiguous()):
+        if not (t.is_cuda and t.get_device() == index
+                and t.dtype is torch.float32 and t.dim() == 1
+                and t.shape[0] == b and t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 [{b}] "
                              f"tensor on {w.device}")
-    tiles = -(-n // _TILE)
     counts = torch.empty((b, n), dtype=torch.int32, device=w.device)
-    bsum = torch.empty((b, tiles), dtype=torch.float64, device=w.device)
-    bmax = torch.empty((b, tiles), dtype=torch.int32, device=w.device)
+    bsum = bmax = None
+    if n > _TILE:       # the three passes' tile sums and maxima
+        tiles = -(-n // _TILE)
+        bsum = torch.empty((b, tiles), dtype=torch.float64, device=w.device)
+        bmax = torch.empty((b, tiles), dtype=torch.int32, device=w.device)
     err = _build.lib().cssm_systematic_counts_batched(
         w.data_ptr(), total.data_ptr(), u.data_ptr(), counts.data_ptr(),
-        bsum.data_ptr(), bmax.data_ptr(), b, n, w.device.index,
-        _build.cuda_stream(w.device))
+        bsum.data_ptr() if bsum is not None else None,
+        bmax.data_ptr() if bmax is not None else None, b, n, _SHORT_ROWS,
+        index, _build.cuda_stream(index))
     _build.check(err, "cssm_systematic_counts_batched")
     systematic_counts_batched.launches += 1
     return counts

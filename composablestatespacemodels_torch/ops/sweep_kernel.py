@@ -40,7 +40,9 @@ from ..models.observation import _KERNEL_FNS, kernel_fn
 from . import _build
 from .resample_kernel import _MASK32, philox4x32_10, philox_normals
 
-MAX_PARTICLES = 1024     # one particle per thread of the 1024-thread block
+MAX_PARTICLES = 1024     # the JAX kernel's limit, one 4096-item scan tile
+# particles a thread owns (csrc/sweep.cu)
+_PER_THREAD = 4
 # dynamic shared memory a block can hold on an H100 (227 KB), less 1 KiB
 # for the kernel's static reduction scratch
 MAX_SHARED_BYTES = 232448 - 1024
@@ -174,7 +176,7 @@ def pf_sweep_chains(x0: torch.Tensor, coef: torch.Tensor,
         x0.data_ptr(), coef.data_ptr(), design.data_ptr(), wconsts.data_ptr(),
         mask.data_ptr(), seed.data_ptr(), ll.data_ptr(), x_final.data_ptr(),
         b, d, n, coef.shape[0], wconsts.shape[-1], math.log(n), family_id,
-        x0.device.index, _build.cuda_stream(x0.device))
+        _PER_THREAD, x0.device.index, _build.cuda_stream(x0.device))
     _build.check(err, "cssm_pf_sweep_chains")
     pf_sweep_chains.launches += 1
     return ll, x_final
