@@ -35,8 +35,12 @@ the counts fall across tiles (the running-max carry); K2 and K4 on the
 counts of four weight regimes and of two spikes, at N = 100, 2^20 and
 2^20 + 5 (K4 also at d = 1 and 13 and on a misaligned counts view), and
 timed on each; K7a bit for bit from N = 1 to 2^22 + 3 and over 200
-back-to-back calls.  Last, each kernel's device time per call from
-``torch.profiler``, with K1, K4 and K7a held to one CUDA kernel per call.
+back-to-back calls; K6 batched bit for bit on rows of 1 to 4097 (and 2^17)
+weights, B = 1, 3, 256, and K8 at n = 1 to 1024, d = 1, 7, 13, B = 1, 3,
+256, every family.  Last, each kernel's device time per call from
+``torch.profiler``, with K1, K4, K7a, K6 batched and K8 held to one CUDA
+kernel per call, K8's at three (B, N) and ptxas's registers for K6
+batched and K8 with the wave that holds 256 chains.
 Every check raises on failure.  Prints one line per phase, then a JSON
 line of per-kernel results (with each kernel's bound from this run's
 shapes, ``ms`` the back-to-back time per call and ``device_ms`` the
@@ -994,17 +998,26 @@ def phase_timing_new(gather_in, prop_in, scan_in, k2_in, regime_counts):
     return times, k2_regimes, k4_regimes
 
 
+# K6 batched's row lengths in phase 16: one warp (1, 31, 32, 100, 127,
+# 128), two warps (129), four (512), a whole tile (4096), and past one tile
+# (4097, 2^17: the three passes)
+K6B_NS = (1, 31, 32, 100, 127, 128, 129, 512, 4096, 4097)
+
+
 def phase_counts_batched(gen, dev):
     """[16] K6 batched against its plain version and against K1 row by
-    row, bit for bit, in four weight regimes."""
+    row, bit for bit, in four weight regimes, at every N of ``K6B_NS`` with
+    B = 1, 3, 256, and at [4, 2^17].  Returns the mild inputs at [256, 100]
+    and [256, 512]."""
     import torch
 
     from composablestatespacemodels_torch.ops.scan_kernel import (
         systematic_counts_batched, systematic_counts_batched_ref,
         systematic_counts_fused)
 
-    keep = None
-    for b, n in ((CHAINS, N_PMMH), (4, 2 ** 17)):
+    keep, cases = {}, 0
+    shapes = [(b, n) for n in K6B_NS for b in (1, 3, CHAINS)] + [(4, 2 ** 17)]
+    for b, n in shapes:
         for regime in ("uniform", "mild", "heavy", "degenerate"):
             w = torch.stack([_weights(regime, n, gen, dev) for _ in range(b)])
             total = w.sum(dim=-1)
@@ -1020,12 +1033,14 @@ def phase_counts_batched(gen, dev):
                         f"K6 batched {regime} [{b}, {n}]: "
                         f"{int((ck != other).sum())} counts differ from "
                         f"{name}")
-            if regime == "mild" and b == CHAINS:
-                keep = (w, total, u)
-    print(f"[16] K6 batched counts vs plain and vs K1 row by row at [B, N] = "
-          f"[{CHAINS}, {N_PMMH}] and [4, {2 ** 17}]: bit-equal in the "
-          "uniform, mild, heavy and degenerate regimes", flush=True)
-    return 0, keep
+            cases += 1
+            if regime == "mild" and b == CHAINS and n in (N_PMMH, 512):
+                keep[n] = (w, total, u)
+    print(f"[16] K6 batched counts vs plain and vs K1 row by row: bit-equal "
+          f"in the uniform, mild, heavy and degenerate regimes at N in "
+          f"{list(K6B_NS)} x B in (1, 3, {CHAINS}) and at [4, {2 ** 17}] "
+          f"({cases} cases)", flush=True)
+    return 0, keep[N_PMMH], keep[512]
 
 
 def _sweep_case(gen, dev, n, d, b, t_len, family):
@@ -1057,18 +1072,30 @@ def _sweep_case(gen, dev, n, d, b, t_len, family):
     return (x0, coef, design, wconsts, mask, seed, fid)
 
 
+# K8's cases in phase 17: every n of the block sizes (one warp, 4, 5, 16
+# and 32 warps, one scan warp or several) at d = 1, 7 and 13, B = 1, 3 and
+# 256 in turn, the families in turn
+K8_NS = (1, 100, 128, 129, 512, 1000, 1024)
+K8_FAMILIES = ("Poisson", "Gaussian", "ZeroInflatedPoisson",
+               "NegativeBinomial", "Bernoulli", "StudentsT", "Beta")
+
+
 def phase_sweep(gen, dev):
-    """[17] K8 against its plain version, ll and x_final bit for bit, each
-    case with a masked step; then the seed's streams."""
+    """[17] K8 against its plain version, ll and x_final bit for bit, at
+    every n of ``K8_NS`` and d = 1, 7, 13 (all within the shared-memory
+    limit), B = 1, 3, 256 and the seven families in turn, each case with a
+    masked step; then the seed's streams."""
     import torch
 
     from composablestatespacemodels_torch.ops.sweep_kernel import (
-        pf_sweep_chains, pf_sweep_chains_ref)
+        MAX_SHARED_BYTES, pf_sweep_chains, pf_sweep_chains_ref)
 
-    lines = []
-    for n, d, b, t_len, fam in ((N_PMMH, 7, CHAINS, 100, "Poisson"),
-                                (512, 7, 16, 60, "Gaussian"),
-                                (1024, 1, 8, 60, "Gaussian")):
+    cases = []
+    shapes = [(n, d, b) for n in K8_NS for d in (1, 7, 13)
+              for b in (1, 3, CHAINS) if (2 * d + 2) * n * 4 <= MAX_SHARED_BYTES]
+    for i, (n, d, b) in enumerate(shapes):
+        fam = K8_FAMILIES[i % len(K8_FAMILIES)]
+        t_len = 60 if b * n * d <= 3 * 1024 * 13 else 30
         args = _sweep_case(gen, dev, n, d, b, t_len, fam)
         llk, xk = pf_sweep_chains(*args)
         llp, xp = pf_sweep_chains_ref(*args)
@@ -1080,7 +1107,7 @@ def phase_sweep(gen, dev):
                 f"{float((xk - xp).abs().max())}")
         if not bool(torch.isfinite(llk).all()):
             raise AssertionError(f"K8 ({n}, {d}, {b}): ll not finite")
-        lines.append(f"({n}, {d}, {b}) {fam} T={t_len}")
+        cases.append(fam)
     # determinism and streams: the same seed, another seed, identical chains
     x0, coef, design, wconsts, mask, seed, fid = _sweep_case(
         gen, dev, N_PMMH, 7, 8, 50, "Poisson")
@@ -1097,10 +1124,13 @@ def phase_sweep(gen, dev):
                              f"{torch.equal(a, a2)}, other seed equal "
                              f"{torch.equal(a, c)}, "
                              f"{distinct} distinct lls of 8 identical chains")
-    print(f"[17] K8 vs plain, (n, d, B): {'; '.join(lines)}, one masked step "
-          "each: ll and x_final bit-equal; the same seed repeats its bits, "
-          f"another differs, 8 identical chains give {distinct} distinct lls",
-          flush=True)
+    print(f"[17] K8 vs plain at (n, d, B) = every n in {list(K8_NS)} x d in "
+          f"(1, 7, 13) x B in (1, 3, {CHAINS}) ({len(cases)} cases, T = 60, "
+          "30 for the largest; each family in "
+          f"{min(cases.count(f) for f in K8_FAMILIES)} or more), one masked "
+          "step each: ll and x_final bit-equal; the same seed repeats its "
+          "bits, another differs, 8 identical chains give "
+          f"{distinct} distinct lls", flush=True)
     return 0
 
 
@@ -1705,19 +1735,40 @@ def phase_library(gather_in, scan_in):
 
 
 # CUDA kernels one call of each wrapper launches at its timing inputs (K7b
-# at N = 2^20: a carry pass; K6 batched at N = 100: one tile); K1, K4 and
-# K7a must launch one
+# at N = 2^20: a carry pass; K6 batched at N = 100: one tile); the kernels
+# of ONE_KERNEL must launch one
 KERNELS_PER_CALL = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 2,
-                    "K6b": 2, "K8": 1}
-ONE_KERNEL = ("K1", "K4", "K7a")
+                    "K6b": 1, "K8": 1}
+ONE_KERNEL = ("K1", "K4", "K7a", "K6b", "K8")
+# K8's device time is also taken at these (B, N), d = 7, T = T_PMMH
+K8_DEVICE_SHAPES = ((1, N_PMMH), (CHAINS, N_PMMH), (1, 512))
 
 
-def phase_device(inputs, scan_w, k3):
+def _sweep_wave(regs: int, n: int, d: int, chains: int, sms: int) -> str:
+    """How many of ``chains`` K8 blocks of n particles one wave holds, from
+    ptxas's registers a thread: blocks per SM under the H100's limits (2048
+    threads, 65,536 registers allocated 256 to a warp, 228 KB of shared
+    memory with 1 KB reserved a block, 32 blocks), times the SMs."""
+    warps = -(-n // 32)
+    smem = (2 * d + 2) * n * 4 + 512 + 1024   # + static scratch, reserve
+    per_sm = min(2048 // (32 * warps),
+                 65536 // (warps * -(-regs * 32 // 256) * 256),
+                 233472 // smem, 32)
+    waves = -(-chains // (per_sm * sms))
+    return (f"{chains} chains at N={n}, d={d}: {warps}-warp blocks, {regs} "
+            f"registers, {per_sm} blocks per SM x {sms} SMs = "
+            f"{per_sm * sms} resident, {waves} wave{'s' if waves > 1 else ''}")
+
+
+def phase_device(inputs, scan_w, k3, k6b_512, ptxas):
     """[27] each kernel's device time per call from torch.profiler (the sum
     of its CUDA kernels' times, so a row whose back-to-back ``ms`` is bound
     by the host shows it) and its CUDA kernels per call, on the inputs it is
-    timed on; for K1, K7a and ``torch.cumsum`` also the host microseconds
-    per call, 1000 calls with no synchronisation.  Fails if K1, K4 or K7a
+    timed on; K6 batched also at [256, 512] and K8 also at every (B, N) of
+    ``K8_DEVICE_SHAPES``; for K1, K6 batched, K7a and ``torch.cumsum`` also
+    the host microseconds per call, 1000 calls with no synchronisation; and
+    ptxas's registers and spills for K6 batched and K8, with the wave that
+    holds K8's 256 chains at N = 100.  Fails if a kernel of ONE_KERNEL
     launches more than one CUDA kernel per call."""
     import torch
 
@@ -1741,6 +1792,21 @@ def phase_device(inputs, scan_w, k3):
                                        KERNELS_PER_CALL[key])
         out[key] = {"device_ms": ms, "device_kernels_per_call": per_call,
                     "device_kernels": names}
+    k6b_512 = _profile(lambda: systematic_counts_batched(*k6b_512), 20, 1)
+    out["K6b"].update(
+        device_ms_at_512=k6b_512[0], device_kernels_per_call_at_512=k6b_512[1],
+        host_us_per_call=_host_us(
+            lambda: systematic_counts_batched(*inputs["K6b"])))
+    gen = torch.Generator(device=scan_w.device).manual_seed(27)
+    k8_shapes = {}
+    for b, n in K8_DEVICE_SHAPES:
+        args = _sweep_case(gen, scan_w.device, n, 7, b, T_PMMH, "Poisson")
+        ms, per_call, _ = _profile(lambda: pf_sweep_chains(*args), 5, 1)
+        if per_call not in (0.0, 1.0):
+            raise AssertionError(f"K8 at (B, N) = ({b}, {n}) launched "
+                                 f"{per_call} CUDA kernels per call")
+        k8_shapes[f"B={b} N={n}"] = ms
+    out["K8"]["device_ms_by_shape"] = k8_shapes
     k3_device = {name: _profile(lambda: propagate_weights_t(*v["K5 args"]),
                                 20, 1)[0] for name, v in k3.items()}
     cum = _profile(lambda: torch.cumsum(scan_w, 0))
@@ -1750,21 +1816,41 @@ def phase_device(inputs, scan_w, k3):
         library_device_ms=cum[0], library_device_kernels_per_call=cum[1])
     out["K1"]["host_us_per_call"] = _host_us(
         lambda: systematic_counts_fused(*inputs["K1"]))
+    regs = {ln.split(":")[0]: ln for ln in ptxas
+            if ln.startswith(("counts_short_rows", "sweep_kernel"))}
+    out["K6b"]["ptxas"] = regs.get("counts_short_rows")
+    out["K8"]["ptxas"] = sorted(v for k, v in regs.items()
+                                if k.startswith("sweep_kernel"))
+    poisson = regs.get("sweep_kernel<1>")
+    wave = (_sweep_wave(int(poisson.split(": ")[1].split(" regs")[0]),
+                        N_PMMH, 7, CHAINS,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count) if poisson else "no ptxas line")
+    out["K8"]["wave"] = wave
     print("[27] device time per call (torch.profiler, summed over the call's "
           "CUDA kernels): " + "; ".join(
               f"{k} {v['device_ms']} ms in {v['device_kernels_per_call']:g} "
               f"kernels ({', '.join(n[:32] for n in v['device_kernels'])})"
               for k, v in out.items())
+          + f"; K6 batched at [{CHAINS}, 512] {k6b_512[0]} ms in "
+          f"{k6b_512[1]:g} kernels; K8 at d=7, T={T_PMMH}: " + ", ".join(
+              f"{k} {v} ms" for k, v in k8_shapes.items())
           + f"; torch.cumsum {cum[0]} ms in {cum[1]:g} kernels; host per "
           f"call (1000 calls, no sync): K1 "
-          f"{out['K1']['host_us_per_call']:.2f} us, K7a "
+          f"{out['K1']['host_us_per_call']:.2f} us, K6 batched "
+          f"{out['K6b']['host_us_per_call']:.2f} us, K7a "
           f"{out['K7a']['host_us_per_call']:.2f} us, torch.cumsum "
-          f"{out['K7a']['library_host_us_per_call']:.2f} us", flush=True)
+          f"{out['K7a']['library_host_us_per_call']:.2f} us; ptxas: "
+          f"{out['K6b']['ptxas']} | {' | '.join(out['K8']['ptxas'])}; "
+          f"K8 wave: {wave}", flush=True)
     for key in ONE_KERNEL:
         if out[key]["device_kernels_per_call"] not in (0.0, 1.0):
             raise AssertionError(
                 f"{key} launched {out[key]['device_kernels_per_call']} CUDA "
                 "kernels per call, expected 1")
+    if k6b_512[1] not in (0.0, 1.0):
+        raise AssertionError(f"K6b at [{CHAINS}, 512] launched {k6b_512[1]} "
+                             "CUDA kernels per call, expected 1")
     return out, k3_device
 
 
@@ -1808,7 +1894,7 @@ def main() -> int:
     times.update(new_times)
     # K1 at the single PMMH tier's shape, [N_PMMH] (phase 8 holds K4 there)
     k1_err = max(k1_err, phase_counts(gen, dev, N_PMMH)[0])
-    k6b_err, counts_b_in = phase_counts_batched(gen, dev)
+    k6b_err, counts_b_in, counts_b_512 = phase_counts_batched(gen, dev)
     k8_err = phase_sweep(gen, dev)
     phase_sweep_path(dev)
     phase_sweep_stats(dev)
@@ -1824,7 +1910,8 @@ def main() -> int:
     device, k3_device = phase_device(
         {"K1": counts_in[:3], "K2": prop_in, "K4": gather_in,
          "K5": prop5_in, "K7a": (scan_in[0],), "K7b": (scan_in[1],),
-         "K6b": counts_b_in, "K8": sweep_in}, scan_in[0], k3)
+         "K6b": counts_b_in, "K8": sweep_in}, scan_in[0], k3, counts_b_512,
+        ptxas)
     phase_main_device(dev)
 
     # bound_ms from this run's inputs: each input read once, each output

@@ -62,13 +62,20 @@ constexpr unsigned kFull = 0xffffffffu;
 // into a lower one.  With warps == 1 each warp stands alone, with no shared
 // memory and no barrier: its sum is its warp's tree plus +0.0, which is
 // exact because no sum of this header's is -0.0 (each starts from +0.0),
-// and its exclusive scan is 0.0 + its lanes', likewise exact.
+// and its exclusive scan is 0.0 + its lanes', likewise exact.  The warps
+// may be the first of a larger block (K8): they meet at group_sync.
 
-__device__ __forceinline__ void block_sync(int warps) {
+// The barrier of the block's first `warps` warps, the ones that run a
+// block helper: __syncwarp for a warp on its own, __syncthreads for the
+// whole tile, named barrier 1 for any other group (so the rest of the
+// block may wait at barrier 0, __syncthreads, meanwhile).
+__device__ __forceinline__ void group_sync(int warps) {
   if (warps == 1) {
     __syncwarp();
-  } else {
+  } else if (warps == kWarps) {
     __syncthreads();
+  } else {
+    asm volatile("bar.sync 1, %0;" ::"r"(32 * warps) : "memory");
   }
 }
 
@@ -78,15 +85,15 @@ __device__ __forceinline__ double block_sum(double v, double* smem,
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   if (warps == 1) return __shfl_sync(kFull, v, 0);
   if (lane == 0) smem[warp] = v;
-  __syncthreads();
+  group_sync(warps);
   if (warp == 0) {
     double t = lane < warps ? smem[lane] : 0.0;
     for (int o = 16; o > 0; o >>= 1) t += __shfl_down_sync(kFull, t, o);
     if (lane == 0) smem[0] = t;
   }
-  __syncthreads();
+  group_sync(warps);
   const double total = smem[0];
-  __syncthreads();
+  group_sync(warps);
   return total;
 }
 
@@ -96,15 +103,15 @@ __device__ __forceinline__ int block_max(int v, int* smem,
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_down_sync(kFull, v, o));
   if (warps == 1) return __shfl_sync(kFull, v, 0);
   if (lane == 0) smem[warp] = v;
-  __syncthreads();
+  group_sync(warps);
   if (warp == 0) {
     int t = lane < warps ? smem[lane] : INT_MIN;
     for (int o = 16; o > 0; o >>= 1) t = max(t, __shfl_down_sync(kFull, t, o));
     if (lane == 0) smem[0] = t;
   }
-  __syncthreads();
+  group_sync(warps);
   const int m = smem[0];
-  __syncthreads();
+  group_sync(warps);
   return m;
 }
 
@@ -117,7 +124,7 @@ __device__ __forceinline__ float block_max(float v, float* smem,
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(kFull, v, o));
   if (warps == 1) return __shfl_sync(kFull, v, 0);
   if (lane == 0) smem[warp] = v;
-  __syncthreads();
+  group_sync(warps);
   if (warp == 0) {
     float t = lane < warps ? smem[lane] : __int_as_float(0x7fffffff);
     for (int o = 16; o > 0; o >>= 1) {
@@ -125,9 +132,9 @@ __device__ __forceinline__ float block_max(float v, float* smem,
     }
     if (lane == 0) smem[0] = t;
   }
-  __syncthreads();
+  group_sync(warps);
   const float m = smem[0];
-  __syncthreads();
+  group_sync(warps);
   return m;
 }
 
@@ -143,7 +150,7 @@ __device__ __forceinline__ double block_exclusive_sum(double v, double* smem,
   if (lane == 0) ex = 0.0;
   if (warps == 1) return ex;
   if (lane == 31) smem[warp] = incl;
-  __syncthreads();
+  group_sync(warps);
   if (warp == 0) {
     double wi = lane < warps ? smem[lane] : 0.0;
     for (int o = 1; o < 32; o <<= 1) {
@@ -153,9 +160,9 @@ __device__ __forceinline__ double block_exclusive_sum(double v, double* smem,
     double we = __shfl_up_sync(kFull, wi, 1);
     smem[lane] = lane == 0 ? 0.0 : we;
   }
-  __syncthreads();
+  group_sync(warps);
   const double res = smem[warp] + ex;
-  __syncthreads();
+  group_sync(warps);
   return res;
 }
 
@@ -171,7 +178,7 @@ __device__ __forceinline__ int block_exclusive_max(int v, int* smem,
   if (lane == 0) ex = INT_MIN;
   if (warps == 1) return ex;
   if (lane == 31) smem[warp] = incl;
-  __syncthreads();
+  group_sync(warps);
   if (warp == 0) {
     int wi = lane < warps ? smem[lane] : INT_MIN;
     for (int o = 1; o < 32; o <<= 1) {
@@ -181,9 +188,9 @@ __device__ __forceinline__ int block_exclusive_max(int v, int* smem,
     const int we = __shfl_up_sync(kFull, wi, 1);
     smem[lane] = lane == 0 ? INT_MIN : we;
   }
-  __syncthreads();
+  group_sync(warps);
   const int res = max(smem[warp], ex);
-  __syncthreads();
+  group_sync(warps);
   return res;
 }
 

@@ -37,8 +37,7 @@ _SIGNATURES = {
                                ctypes.c_int64, ctypes.c_uint64, ctypes.c_int,
                                _P],
     "cssm_systematic_counts_batched": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,
-                                       ctypes.c_int64, ctypes.c_int,
-                                       ctypes.c_int, _P],
+                                       ctypes.c_int64, ctypes.c_int, _P],
     "cssm_resample_propagate": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                 _P],
@@ -53,7 +52,7 @@ _SIGNATURES = {
     "cssm_pf_sweep_chains": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, _P],
+                             ctypes.c_int, _P],
 }
 
 _lock = threading.Lock()

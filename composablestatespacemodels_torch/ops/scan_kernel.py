@@ -118,11 +118,6 @@ def systematic_counts_batched_ref(w: torch.Tensor, total: torch.Tensor,
                                u[:, None], w.shape[-1])
 
 
-# K6 batched on rows of n <= 128: rows (one warp each) to a block
-# (csrc/counts.cu)
-_SHORT_ROWS = 4
-
-
 def systematic_counts_batched(w: torch.Tensor, total: torch.Tensor,
                               u: torch.Tensor) -> torch.Tensor:
     """Monotone systematic counts ``int32 [B, N]`` for B chains: row b from
@@ -156,8 +151,8 @@ def systematic_counts_batched(w: torch.Tensor, total: torch.Tensor,
     err = _build.lib().cssm_systematic_counts_batched(
         w.data_ptr(), total.data_ptr(), u.data_ptr(), counts.data_ptr(),
         bsum.data_ptr() if bsum is not None else None,
-        bmax.data_ptr() if bmax is not None else None, b, n, _SHORT_ROWS,
-        index, _build.cuda_stream(index))
+        bmax.data_ptr() if bmax is not None else None, b, n, index,
+        _build.cuda_stream(index))
     _build.check(err, "cssm_systematic_counts_batched")
     systematic_counts_batched.launches += 1
     return counts

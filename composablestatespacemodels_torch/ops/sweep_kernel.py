@@ -3,15 +3,16 @@ the likelihood of PMMH's fused tiers.
 
 Replaces ``composablestatespacemodels_tpu/ops/sweep_kernel.py``'s
 ``pf_sweep_chains`` (:358) with the CUDA kernel in ``csrc/sweep.cu``: one
-thread block per chain holds the cloud in shared memory and runs every
-step -- propagate with in-kernel Philox normals, the K3 weights of any of
-the seven pointwise observation families with the step's constants for
-the chain (a masked step gets weight 0, a select and
-not a multiply), the max, the float64 sum and the ll increment
-``max + log(total) - log(n)``, the systematic counts with their running
-max (the arithmetic of K1, ``csrc/scan.cuh``), the ancestors and the
-gather.  ``coef[0]`` is the dt = 0 step, so ``x0`` is the cloud at the
-first observation time, as in the JAX package.
+thread block per chain, ``ceil(n / 32)`` warps with a particle a thread,
+holds the cloud in shared memory and runs every step -- propagate with
+in-kernel Philox normals, the K3 weights of any of the seven pointwise
+observation families with the step's constants for the chain (a masked
+step gets weight 0, a select and not a multiply), the max, the float64 sum
+and the ll increment ``max + log(total) - log(n)``, the systematic counts
+with their running max (the arithmetic of K1, on the ``ceil(n / 128)``
+warps that a tile of n items fills: ``csrc/scan.cuh``'s short tiles), the
+ancestors and the gather.  ``coef[0]`` is the dt = 0 step, so ``x0`` is
+the cloud at the first observation time, as in the JAX package.
 
 The plain version is :func:`pf_sweep_step_ref` in a loop: one step on
 ``[B, d, n]`` that takes its normals ``z`` and resampling uniforms ``u``
@@ -40,9 +41,7 @@ from ..models.observation import _KERNEL_FNS, kernel_fn
 from . import _build
 from .resample_kernel import _MASK32, philox4x32_10, philox_normals
 
-MAX_PARTICLES = 1024     # the JAX kernel's limit, one 4096-item scan tile
-# particles a thread owns (csrc/sweep.cu)
-_PER_THREAD = 4
+MAX_PARTICLES = 1024     # the JAX kernel's limit; one particle a thread
 # dynamic shared memory a block can hold on an H100 (227 KB), less 1 KiB
 # for the kernel's static reduction scratch
 MAX_SHARED_BYTES = 232448 - 1024
@@ -176,7 +175,7 @@ def pf_sweep_chains(x0: torch.Tensor, coef: torch.Tensor,
         x0.data_ptr(), coef.data_ptr(), design.data_ptr(), wconsts.data_ptr(),
         mask.data_ptr(), seed.data_ptr(), ll.data_ptr(), x_final.data_ptr(),
         b, d, n, coef.shape[0], wconsts.shape[-1], math.log(n), family_id,
-        _PER_THREAD, x0.device.index, _build.cuda_stream(x0.device))
+        x0.device.index, _build.cuda_stream(x0.device))
     _build.check(err, "cssm_pf_sweep_chains")
     pf_sweep_chains.launches += 1
     return ll, x_final
