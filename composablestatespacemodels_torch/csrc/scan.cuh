@@ -53,8 +53,9 @@ constexpr unsigned kFull = 0xffffffffu;
 // the tile; the threads past them hold items past n, which the sums take as
 // +0.0 and the running max as INT_MIN.  So a block of `warps` >= ceil(n /
 // 128) warps computes the tile's bits (K6 batched on short rows, K8): the
-// block helpers below take the number of warps in the block (kWarps by
-// default, the whole tile) and their second tree reads the warps' values
+// block helpers below (but the int block_max, which only K1 and K7b use)
+// take the number of warps in the block (kWarps by default, the whole
+// tile) and their second tree reads the warps' values
 // from shared memory below `warps` and an identity above it (0.0, INT_MIN;
 // for the float maximum NaN, which fmaxf drops).  For the sum that is the
 // 1024-thread tree on the very values the dropped warps would add, +0.0;
@@ -97,21 +98,19 @@ __device__ __forceinline__ double block_sum(double v, double* smem,
   return total;
 }
 
-__device__ __forceinline__ int block_max(int v, int* smem,
-                                         int warps = kWarps) {
+__device__ __forceinline__ int block_max(int v, int* smem) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_down_sync(kFull, v, o));
-  if (warps == 1) return __shfl_sync(kFull, v, 0);
   if (lane == 0) smem[warp] = v;
-  group_sync(warps);
+  __syncthreads();
   if (warp == 0) {
-    int t = lane < warps ? smem[lane] : INT_MIN;
+    int t = smem[lane];
     for (int o = 16; o > 0; o >>= 1) t = max(t, __shfl_down_sync(kFull, t, o));
     if (lane == 0) smem[0] = t;
   }
-  group_sync(warps);
+  __syncthreads();
   const int m = smem[0];
-  group_sync(warps);
+  __syncthreads();
   return m;
 }
 

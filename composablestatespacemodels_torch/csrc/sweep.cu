@@ -77,11 +77,6 @@ __device__ __forceinline__ float step_uniform(uint32_t seed, uint32_t t,
                    2.98023223876953125e-08f);
 }
 
-// Threads of a chain's block: one particle a thread, in whole warps.
-__host__ __device__ __forceinline__ int sweep_threads(int n) {
-  return 32 * ((n + 31) / 32);
-}
-
 // The barrier of the whole block (a warp on its own needs only __syncwarp).
 __device__ __forceinline__ void block_sync(int warps) {
   if (warps == 1) {
@@ -118,7 +113,9 @@ __device__ __forceinline__ void step_rows(float* x, const float* cf,
 // 4i..4i+3.  From the log-weights lw in shared memory: their maximum, u =
 // exp(lw - max) and its float64 sum, the ll increment, then the counts of
 // u / total in tile_prefix's order (offset 0.0) with their running max,
-// K1's arithmetic, stored to counts.
+// K1's arithmetic, stored to counts.  The instance for one warp has the
+// helpers' branches on the warp count folded away (it ran faster on an
+// H100 than one instance that reads the count at run time).
 template <bool ONE>
 __device__ __forceinline__ void sweep_scan(const float* lw, int* counts,
                                            int n, int warps, float lw_floor,
@@ -176,7 +173,7 @@ __device__ __forceinline__ void sweep_scan(const float* lw, int* counts,
   }
 }
 
-// One chain per block of sweep_threads(n) threads; thread j owns particle j.
+// One chain per block of ceil(n / 32) warps; thread j owns particle j.
 template <int FAMILY>
 __global__ void __launch_bounds__(kThreads) sweep_kernel(
     const float* __restrict__ x0, const float* __restrict__ coef,
@@ -275,7 +272,7 @@ int launch_sweep(const float* x0, const float* coef, const float* design,
       sweep_kernel<FAMILY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  sweep_kernel<FAMILY><<<chains, sweep_threads(n), smem, s>>>(
+  sweep_kernel<FAMILY><<<chains, 32 * ((n + 31) / 32), smem, s>>>(
       x0, coef, design, wconsts, mask, seed, ll, x_final, d, n, steps, kc,
       log_n);
   return (int)cudaGetLastError();
