@@ -39,8 +39,9 @@ back-to-back calls; K6 batched bit for bit on rows of 1 to 4097 (and 2^17)
 weights, B = 1, 3, 256, and K8 at n = 1 to 1024, d = 1, 7, 13, B = 1, 3,
 256, every family.  Last, each kernel's device time per call from
 ``torch.profiler``, with K1, K4, K7a, K6 batched and K8 held to one CUDA
-kernel per call, K8's at three (B, N) and ptxas's registers for K6
-batched and K8 with the wave that holds 256 chains.
+kernel per call, K8's at three (B, N), ptxas's registers for K6 batched
+and K8, and the blocks of K8 an SM holds at N = 100 (CUDA runtime), with
+the waves that 256 chains take.
 Every check raises on failure.  Prints one line per phase, then a JSON
 line of per-kernel results (with each kernel's bound from this run's
 shapes, ``ms`` the back-to-back time per call and ``device_ms`` the
@@ -1744,22 +1745,6 @@ ONE_KERNEL = ("K1", "K4", "K7a", "K6b", "K8")
 K8_DEVICE_SHAPES = ((1, N_PMMH), (CHAINS, N_PMMH), (1, 512))
 
 
-def _sweep_wave(regs: int, n: int, d: int, chains: int, sms: int) -> str:
-    """How many of ``chains`` K8 blocks of n particles one wave holds, from
-    ptxas's registers a thread: blocks per SM under the H100's limits (2048
-    threads, 65,536 registers allocated 256 to a warp, 228 KB of shared
-    memory with 1 KB reserved a block, 32 blocks), times the SMs."""
-    warps = -(-n // 32)
-    smem = (2 * d + 2) * n * 4 + 512 + 1024   # + static scratch, reserve
-    per_sm = min(2048 // (32 * warps),
-                 65536 // (warps * -(-regs * 32 // 256) * 256),
-                 233472 // smem, 32)
-    waves = -(-chains // (per_sm * sms))
-    return (f"{chains} chains at N={n}, d={d}: {warps}-warp blocks, {regs} "
-            f"registers, {per_sm} blocks per SM x {sms} SMs = "
-            f"{per_sm * sms} resident, {waves} wave{'s' if waves > 1 else ''}")
-
-
 def phase_device(inputs, scan_w, k3, k6b_512, ptxas):
     """[27] each kernel's device time per call from torch.profiler (the sum
     of its CUDA kernels' times, so a row whose back-to-back ``ms`` is bound
@@ -1767,9 +1752,11 @@ def phase_device(inputs, scan_w, k3, k6b_512, ptxas):
     timed on; K6 batched also at [256, 512] and K8 also at every (B, N) of
     ``K8_DEVICE_SHAPES``; for K1, K6 batched, K7a and ``torch.cumsum`` also
     the host microseconds per call, 1000 calls with no synchronisation; and
-    ptxas's registers and spills for K6 batched and K8, with the wave that
-    holds K8's 256 chains at N = 100.  Fails if a kernel of ONE_KERNEL
-    launches more than one CUDA kernel per call."""
+    ptxas's registers and spills for K6 batched and K8 (printed), and K8's
+    registers, local memory and resident blocks per SM at N = 100, d = 7
+    from the CUDA runtime, with the waves that 256 chains take on this
+    card's SMs.  Fails if a kernel of ONE_KERNEL launches more than one CUDA
+    kernel per call."""
     import torch
 
     from composablestatespacemodels_torch.ops.resample_kernel import (
@@ -1778,7 +1765,7 @@ def phase_device(inputs, scan_w, k3, k6b_512, ptxas):
         cummax_int32, prefix_sum, systematic_counts_batched,
         systematic_counts_fused)
     from composablestatespacemodels_torch.ops.sweep_kernel import (
-        pf_sweep_chains)
+        pf_sweep_chains, sweep_occupancy)
 
     fns = {"K1": systematic_counts_fused, "K2": resample_propagate,
            "K4": sorted_gather_resample_t, "K5": propagate_weights_t,
@@ -1816,17 +1803,18 @@ def phase_device(inputs, scan_w, k3, k6b_512, ptxas):
         library_device_ms=cum[0], library_device_kernels_per_call=cum[1])
     out["K1"]["host_us_per_call"] = _host_us(
         lambda: systematic_counts_fused(*inputs["K1"]))
-    regs = {ln.split(":")[0]: ln for ln in ptxas
-            if ln.startswith(("counts_short_rows", "sweep_kernel"))}
-    out["K6b"]["ptxas"] = regs.get("counts_short_rows")
-    out["K8"]["ptxas"] = sorted(v for k, v in regs.items()
-                                if k.startswith("sweep_kernel"))
-    poisson = regs.get("sweep_kernel<1>")
-    wave = (_sweep_wave(int(poisson.split(": ")[1].split(" regs")[0]),
-                        N_PMMH, 7, CHAINS,
-                        torch.cuda.get_device_properties(0)
-                        .multi_processor_count) if poisson else "no ptxas line")
-    out["K8"]["wave"] = wave
+    ptxas_k6b_k8 = [ln for ln in ptxas
+                    if ln.startswith(("counts_short_rows", "sweep_kernel"))]
+    # the flagship's family (Poisson) at the PMMH shape, as the runtime
+    # sees the loaded kernel
+    occ = sweep_occupancy(7, N_PMMH, inputs["K8"][-1], scan_w.device)
+    sms = torch.cuda.get_device_properties(scan_w.device).multi_processor_count
+    occ.update(n=N_PMMH, d=7, sms=sms,
+               resident_blocks=occ["blocks_per_sm"] * sms)
+    occ[f"waves_for_{CHAINS}_chains"] = (
+        -(-CHAINS // occ["resident_blocks"]) if occ["resident_blocks"]
+        else None)
+    out["K8"]["occupancy"] = occ
     print("[27] device time per call (torch.profiler, summed over the call's "
           "CUDA kernels): " + "; ".join(
               f"{k} {v['device_ms']} ms in {v['device_kernels_per_call']:g} "
@@ -1841,8 +1829,12 @@ def phase_device(inputs, scan_w, k3, k6b_512, ptxas):
           f"{out['K6b']['host_us_per_call']:.2f} us, K7a "
           f"{out['K7a']['host_us_per_call']:.2f} us, torch.cumsum "
           f"{out['K7a']['library_host_us_per_call']:.2f} us; ptxas: "
-          f"{out['K6b']['ptxas']} | {' | '.join(out['K8']['ptxas'])}; "
-          f"K8 wave: {wave}", flush=True)
+          f"{' | '.join(ptxas_k6b_k8)}; K8 at N={N_PMMH}, d=7 (CUDA "
+          f"runtime): {occ['registers']} registers, {occ['local_bytes']} B "
+          f"local, {occ['blocks_per_sm']} blocks per SM x {sms} SMs = "
+          f"{occ['resident_blocks']} resident, "
+          f"{occ[f'waves_for_{CHAINS}_chains']} wave(s) for {CHAINS} "
+          "chains", flush=True)
     for key in ONE_KERNEL:
         if out[key]["device_kernels_per_call"] not in (0.0, 1.0):
             raise AssertionError(

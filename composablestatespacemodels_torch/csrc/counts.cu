@@ -109,28 +109,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   const double offset =
       publish_and_offset(ws, epoch, b, block_sum(tsum, dsm), dsm);
-  // tile_prefix's order: the offset, the tile's exclusive scan, the items
-  double p = offset + block_exclusive_sum(tsum, dsm);
-  const float uu = __ldg(u);
-  const float nf = (float)n;
-  // tile_cummax_store's running max within the thread, then the tile
   int c[kItems];
-  int run = INT_MIN;
+  tile_counts(v, offset, __ldg(u), base, n, dsm, ism, c);
+  // at thread kThreads - 1, c[kItems - 1] is the tile's maximum
+  const int carry = publish_and_carry(ws, epoch, b, c[kItems - 1], ism);
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    p += (double)v[k];
-    const int ck = base + k < n ? systematic_count(__double2float_rn(p), uu,
-                                                   nf, base + k, n)
-                                : INT_MIN;
-    run = max(run, ck);
-    c[k] = run;
-  }
-  const int ex = block_exclusive_max(run, ism);
-  // at thread kThreads - 1, max(run, ex) is the tile's maximum
-  const int carry = publish_and_carry(ws, epoch, b, max(run, ex), ism);
-  const int lift = max(ex, carry);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) c[k] = max(c[k], lift);
+  for (int k = 0; k < kItems; ++k) c[k] = max(c[k], carry);
   if (whole && ((uintptr_t)counts & 15) == 0) {
     *reinterpret_cast<int4*>(counts + base) = make_int4(c[0], c[1], c[2],
                                                         c[3]);
@@ -182,31 +166,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float tot = __ldg(total + row);
   float v[kItems];
-  double tsum = 0.0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     v[k] = base + k < n ? __fdiv_rn(raw[k], tot) : 0.f;
-    tsum += (double)v[k];
   }
-  // tile_prefix's order: the offset (0.0: no tile before), the tile's
-  // exclusive scan, the items
-  double p = block_exclusive_sum(tsum, dsm, warps);
-  const float uu = __ldg(u + row);
-  const float nf = (float)n;
+  // the offset is 0.0: no tile comes before
   int c[kItems];
-  int run = INT_MIN;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    p += (double)v[k];
-    const int ck = base + k < n ? systematic_count(__double2float_rn(p), uu,
-                                                   nf, base + k, n)
-                                : INT_MIN;
-    run = max(run, ck);
-    c[k] = run;
-  }
-  const int ex = block_exclusive_max(run, ism, warps);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) c[k] = max(c[k], ex);
+  tile_counts(v, 0.0, __ldg(u + row), base, n, dsm, ism, c, warps);
   if (whole && ((uintptr_t)(counts + base) & 15) == 0) {
     *reinterpret_cast<int4*>(counts + base) = make_int4(c[0], c[1], c[2],
                                                         c[3]);

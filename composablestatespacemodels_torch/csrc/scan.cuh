@@ -202,6 +202,41 @@ __device__ __forceinline__ int systematic_count(float cdf, float u, float nf,
   return i == n - 1 ? (int)n : (int)v;
 }
 
+// K1's counts of this thread's items base..base + kItems - 1 of a tile, on
+// the block's first `warps` warps, from v (the normalised weights, 0.0 past
+// n) and offset (the float64 sum of the row's tiles before this one, 0.0
+// for the first): tile_prefix's order (the offset, the tile's exclusive
+// scan, the items in turn), systematic_count, then tile_cummax_store's
+// running max within the thread and across the warps.  K1, K6 batched and
+// K8 all count here, so their counts agree bit for bit.  c[kItems - 1] is
+// the running max at this thread's last item (at the tile's last thread,
+// the tile's maximum).
+__device__ __forceinline__ void tile_counts(const float (&v)[kItems],
+                                            double offset, float u,
+                                            int64_t base, int64_t n,
+                                            double* dsm, int* ism,
+                                            int (&c)[kItems],
+                                            int warps = kWarps) {
+  double s = 0.0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) s += (double)v[k];
+  double p = offset + block_exclusive_sum(s, dsm, warps);
+  const float nf = (float)n;
+  int run = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    p += (double)v[k];
+    const int ck = base + k < n ? systematic_count(__double2float_rn(p), u,
+                                                   nf, base + k, n)
+                                : INT_MIN;
+    run = max(run, ck);
+    c[k] = run;
+  }
+  const int ex = block_exclusive_max(run, ism, warps);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) c[k] = max(c[k], ex);
+}
+
 // This thread's float64 sum of its kItems values of tile `tile`, in order.
 template <class Load>
 __device__ __forceinline__ double thread_sum(Load load, int64_t n,

@@ -112,10 +112,11 @@ __device__ __forceinline__ void step_rows(float* x, const float* cf,
 // ceil(n / 128) warps (`warps`; ONE when that is one) holds items
 // 4i..4i+3.  From the log-weights lw in shared memory: their maximum, u =
 // exp(lw - max) and its float64 sum, the ll increment, then the counts of
-// u / total in tile_prefix's order (offset 0.0) with their running max,
-// K1's arithmetic, stored to counts.  The instance for one warp has the
-// helpers' branches on the warp count folded away (it ran faster on an
-// H100 than one instance that reads the count at run time).
+// u / total (tile_counts, K1's arithmetic, offset 0.0), stored to counts.
+// The instance for one warp has the helpers' branches on the warp count
+// folded away.  Built without it (scripts/torch_sweep_instance_probe.py:
+// the runtime instance alone, 60 registers against 64), K8 ran 8-9% slower
+// on an H100 at one chain, d = 7, n = 100 and n = 512.
 template <bool ONE>
 __device__ __forceinline__ void sweep_scan(const float* lw, int* counts,
                                            int n, int warps, float lw_floor,
@@ -147,29 +148,15 @@ __device__ __forceinline__ void sweep_scan(const float* lw, int* counts,
   if (observed) {
     ll = __fadd_rn(ll, __fsub_rn(__fadd_rn(maxw, logf(total)), log_n));
   }
-  double s = 0.0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     v[k] = base + k < n ? __fdiv_rn(v[k], total) : 0.f;
-    s += (double)v[k];
   }
-  double pre = block_exclusive_sum(s, dsm, warps);
-  const float nf = (float)n;
   int c[kItems];
-  int run = INT_MIN;
+  tile_counts(v, 0.0, ud, base, n, dsm, ism, c, warps);
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    pre += (double)v[k];
-    const int ck = base + k < n ? systematic_count(__double2float_rn(pre), ud,
-                                                   nf, base + k, n)
-                                : INT_MIN;
-    run = max(run, ck);
-    c[k] = run;
-  }
-  const int ex = block_exclusive_max(run, ism, warps);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (base + k < n) counts[base + k] = max(c[k], ex);
+    if (base + k < n) counts[base + k] = c[k];
   }
 }
 
@@ -262,20 +249,47 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
   if (j == 0) ll_out[chain] = ll;  // thread 0 is a scan thread
 }
 
+// A chain's block: ceil(n / 32) warps, and the dynamic shared memory of
+// its two clouds, log-weights and counts, which the kernel is allowed.
+__host__ inline int sweep_threads(int n) { return 32 * ((n + 31) / 32); }
+
+template <int FAMILY>
+cudaError_t sweep_shared(int d, int n, size_t* smem) {
+  *smem = (size_t)(2 * d + 2) * n * sizeof(float);
+  return cudaFuncSetAttribute(sweep_kernel<FAMILY>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
 template <int FAMILY>
 int launch_sweep(const float* x0, const float* coef, const float* design,
                  const float* wconsts, const int* mask, const int* seed,
                  float* ll, float* x_final, int chains, int d, int n,
                  int steps, int kc, float log_n, cudaStream_t s) {
-  const size_t smem = (size_t)(2 * d + 2) * n * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<FAMILY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  size_t smem;
+  cudaError_t err = sweep_shared<FAMILY>(d, n, &smem);
   if (err != cudaSuccess) return (int)err;
-  sweep_kernel<FAMILY><<<chains, 32 * ((n + 31) / 32), smem, s>>>(
+  sweep_kernel<FAMILY><<<chains, sweep_threads(n), smem, s>>>(
       x0, coef, design, wconsts, mask, seed, ll, x_final, d, n, steps, kc,
       log_n);
   return (int)cudaGetLastError();
+}
+
+// The loaded kernel's registers and local memory a thread, and the blocks
+// of its launch at (d, n) that an SM holds at once, from the CUDA runtime.
+template <int FAMILY>
+int sweep_occupancy(int d, int n, int* out) {
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, sweep_kernel<FAMILY>);
+  size_t smem;
+  if (err == cudaSuccess) err = sweep_shared<FAMILY>(d, n, &smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 2, sweep_kernel<FAMILY>, sweep_threads(n), smem);
+  }
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  return (int)err;
 }
 
 }  // namespace cssm
@@ -305,5 +319,18 @@ extern "C" int cssm_pf_sweep_chains(const void* x0, const void* coef,
                                               (float*)ll, (float*)x_final,
                                               chains, d, n, steps, kc, log_n,
                                               s);
+  });
+}
+
+// K8 at (d, n) for `family`: out[0] registers a thread, out[1] local
+// memory bytes a thread (spills), out[2] blocks resident per SM.
+extern "C" int cssm_pf_sweep_occupancy(int d, int n, int family, int device,
+                                       void* out) {
+  using namespace cssm;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || n > kThreads || d <= 0) return (int)cudaErrorInvalidValue;
+  return dispatch_family(family, [&](auto fam) {
+    return sweep_occupancy<decltype(fam)::value>(d, n, (int*)out);
   });
 }

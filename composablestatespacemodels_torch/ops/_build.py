@@ -53,6 +53,8 @@ _SIGNATURES = {
                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, ctypes.c_float, ctypes.c_int,
                              ctypes.c_int, _P],
+    "cssm_pf_sweep_occupancy": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, _P],
 }
 
 _lock = threading.Lock()

@@ -32,6 +32,7 @@ It counts its launches in ``.launches``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -182,3 +183,17 @@ def pf_sweep_chains(x0: torch.Tensor, coef: torch.Tensor,
 
 
 pf_sweep_chains.launches = 0
+
+
+def sweep_occupancy(d: int, n: int, family_id: int,
+                    device: torch.device) -> dict:
+    """K8's resources on a CUDA ``device`` as the CUDA runtime reports them
+    for the loaded kernel of ``family_id``: registers and local-memory bytes
+    a thread, and the blocks of a launch at (d, n) that one SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int * 3)()
+    err = _build.lib().cssm_pf_sweep_occupancy(
+        d, n, family_id, device.index, ctypes.addressof(out))
+    _build.check(err, "cssm_pf_sweep_occupancy")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}

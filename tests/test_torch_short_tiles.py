@@ -10,9 +10,16 @@ as index arithmetic over lanes, at W warps, and held bit for bit to the
 1024-thread tile's plain versions (``rs._tile_sums``, ``rs._cumsum_ref``);
 the counts they yield (K1's arithmetic, the running max within a thread
 and then across threads by the same scan) to
-``systematic_counts_batched_ref``.
+``systematic_counts_batched_ref``, and on dyadic weights to the TPU kernel
+K6 batched replaces, ``_counts_packed_call``, in interpret mode.
+
+This checks the argument, not the kernels: no CUDA code runs here.  The
+kernels (``counts_short_rows``, and ``sweep_kernel``'s scan) are held bit
+for bit to their plain versions on the card by ``chip_smoke.py``, phases
+16 and 17.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,6 +27,7 @@ import torch
 from composablestatespacemodels_torch.inference import resampling as rs
 from composablestatespacemodels_torch.ops.scan_kernel import (
     systematic_counts_batched_ref)
+from composablestatespacemodels_tpu.ops import scan_kernel as jsk
 
 LANES, ITEMS = 32, 4
 INT_MIN = torch.iinfo(torch.int32).min
@@ -151,3 +159,31 @@ def test_short_tile_trees_match_the_tile(n, kind):
     u = torch.from_numpy(rng.random(3).astype(np.float32))
     assert torch.equal(short_tile_counts(wts, total, u, w),
                        systematic_counts_batched_ref(wts, total, u))
+
+
+@pytest.mark.parametrize("n", [1, 129])
+def test_short_tile_counts_match_jax_packed_kernel(n):
+    """Dyadic weights (integers over 2^15) make every prefix exact in any
+    order, so the short tile's counts, the plain version's and the JAX
+    kernel's agree bit for bit."""
+    rng = np.random.default_rng(n)
+    k = rng.integers(0, 8, (3, n)).astype(np.int64)
+    k[:, -1] += 2 ** 15 - k.sum(-1)
+    wts = torch.from_numpy(k.astype(np.float32))
+    total = torch.full((3,), 2.0 ** 15)
+    u = torch.tensor([0.0, 0.5, 0.999])
+    got = short_tile_counts(wts, total, u, -(-n // (LANES * ITEMS)))
+    assert torch.equal(got, systematic_counts_batched_ref(wts, total, u))
+    rows_per = jsk._eff_block_rows(n, 256)
+    x = np.zeros((3, rows_per * 128), np.float32)
+    x[:, :n] = wts.numpy()
+    scal = np.zeros((3, 8, 128), np.float32)
+    scal[:, 0, :] = total.numpy()[:, None]
+    scal[:, 1, :] = u.numpy()[:, None]
+    last = ((n - 1) // (128 * rows_per), ((n - 1) % (128 * rows_per)) // 128,
+            (n - 1) % 128)
+    packed = jsk._counts_packed_call(
+        n, last, rows_per, jnp.asarray(scal),
+        jnp.asarray(x.reshape(3, rows_per, 128)), interpret=True)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(packed).reshape(3, -1)[:, :n])
