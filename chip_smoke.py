@@ -37,15 +37,25 @@ counts of four weight regimes and of two spikes, at N = 100, 2^20 and
 timed on each; K7a bit for bit from N = 1 to 2^22 + 3 and over 200
 back-to-back calls; K6 batched bit for bit on rows of 1 to 4097 (and 2^17)
 weights, B = 1, 3, 256, and K8 at n = 1 to 1024, d = 1, 7, 13, B = 1, 3,
-256, every family.  Last, each kernel's device time per call from
-``torch.profiler``, with K1, K4, K7a, K6 batched and K8 held to one CUDA
-kernel per call, K8's at three (B, N), ptxas's registers for K6 batched
-and K8, and the blocks of K8 an SM holds at N = 100 (CUDA runtime), with
-the waves that 256 chains take.
-Every check raises on failure.  Prints one line per phase, then a JSON
-line of per-kernel results (with each kernel's bound from this run's
-shapes, ``ms`` the back-to-back time per call and ``device_ms`` the
-profiler's), and last ``{"ok": true, "device": {...}}``.
+256, every family.  Then each kernel's device time per call from
+``torch.profiler``, with K1, K4, K7a, K7b, K6 batched and K8 held to one
+CUDA kernel per call, K8's at three (B, N), ptxas's registers for K6
+batched and K8, and the blocks of K8 an SM holds at N = 100 (CUDA
+runtime), with the waves that 256 chains take.  Last, slice 8: K7b bit
+for bit against ``torch.cummax`` at its edge sizes, misaligned, on float
+bits and between K7a and K1 calls; ``interpolation_filter`` on the
+flagship at T = 1000 with a 100-step gap (``store="summary"`` at N = 2^20
+under ``"systematic"`` -- K1, K4 -- and ``"stratified"`` -- K7a, K7b, K4
+--, ``store="path"`` at N = 2^18, the two tiers equal on one seed), on the
+Kalman oracle and under every other scheme and a callable;
+``lgcp_filter`` at the JAX bench's shape (N = 2^17, events simulated by
+``simulate_lgcp`` over [0, 20]) under both schemes, with its
+particle-slot-steps/s; and the new paths' device time per step.
+Every check raises on failure.  Prints one line per phase, a JSON line
+of the new paths' rates, then a JSON line of per-kernel results (with
+each kernel's bound from this run's shapes, ``ms`` the back-to-back time
+per call and ``device_ms`` the profiler's), and last ``{"ok": true,
+"device": {...}}``.
 Needs one CUDA device; without one it exits non-zero and prints no result.
 """
 
@@ -1735,12 +1745,418 @@ def phase_library(gather_in, scan_in):
     return times
 
 
-# CUDA kernels one call of each wrapper launches at its timing inputs (K7b
-# at N = 2^20: a carry pass; K6 batched at N = 100: one tile); the kernels
-# of ONE_KERNEL must launch one
-KERNELS_PER_CALL = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 2,
+# K7b's sizes in phase 29: one element, a tile less one, a tile, a tile and
+# one, the main path's N and three past it (a ragged last tile)
+K7B_SIZES = (1, 4095, 4096, 4097, 2 ** 20, 2 ** 20 + 3)
+INT_MIN = -2 ** 31
+
+
+def _k7b_inputs(gen, dev, n: int):
+    """int32 inputs of K7b at n: uniform over the whole int32 range with
+    INT_MIN planted, a descending run (every tile takes the carry), all
+    INT_MIN, and small negatives (the counts' regime, where a running max
+    plateaus)."""
+    import torch
+    full = torch.randint(INT_MIN, 2 ** 31 - 1, (n,), generator=gen,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    full[::97] = INT_MIN
+    small = torch.randint(-1000, 50, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return {"full range": full,
+            "descending": torch.arange(n, 0, -1, dtype=torch.int32,
+                                       device=dev) - 2 ** 30,
+            "all INT_MIN": torch.full((n,), INT_MIN, dtype=torch.int32,
+                                      device=dev),
+            "small negatives": small}
+
+
+def phase_k7b_edges(gen, dev):
+    """[29] K7b bit-equal to torch.cummax at every K7B_SIZES size on four
+    inputs, on a view that starts one element in (not 16-byte aligned),
+    through the float-bits route (resampling._monotone_cdf), three calls in
+    a row on one stream before any is compared, and with K7a and K1 calls
+    between K7b calls on the shared workspace; one launch per call."""
+    import torch
+
+    from composablestatespacemodels_torch.inference import resampling as rs
+    from composablestatespacemodels_torch.ops.scan_kernel import (
+        cummax_int32, prefix_sum, prefix_sum_ref, systematic_counts_fused,
+        systematic_counts_fused_ref)
+
+    def same(what, k, c):
+        want = torch.cummax(c, 0).values
+        if not torch.equal(k, want):
+            raise AssertionError(f"K7b {what}: {int((k != want).sum())} "
+                                 "entries differ from torch.cummax")
+
+    _reset_counters()
+    calls = 0
+    for n in K7B_SIZES:
+        for name, c in _k7b_inputs(gen, dev, n).items():
+            same(f"{name} N={n}", cummax_int32(c), c)
+            buf = torch.empty(n + 1, dtype=torch.int32, device=dev)
+            buf[1:] = c
+            same(f"{name} N={n} misaligned", cummax_int32(buf[1:]), buf[1:])
+            calls += 2
+    # the float-bits route: a nonnegative cdf with dips, maxed as int32
+    cdf = torch.cumsum(torch.rand(N_MAIN, generator=gen, device=dev), 0)
+    cdf = (cdf / cdf[-1]).clamp(min=0.0)
+    cdf[1000::4096] = 0.0
+    got = rs._monotone_cdf(cdf)
+    if not torch.equal(got, torch.cummax(cdf, 0).values):
+        raise AssertionError("K7b on float bits differs from torch.cummax")
+    calls += 1
+    ins = [_k7b_inputs(gen, dev, N_MAIN)["full range"] for _ in range(3)]
+    outs = [cummax_int32(c) for c in ins]               # back to back
+    for r, (c, o) in enumerate(zip(ins, outs)):
+        same(f"call {r} of three in a row", o, c)
+    calls += 3
+    # K7a and K1 between K7b calls, all on one stream and one workspace
+    w = _weights("mild", N_MAIN, gen, dev)
+    u = torch.rand((), generator=gen, device=dev)
+    total = w.sum()
+    mixed = []
+    for r in range(3):
+        c = ins[r]
+        mixed.append(("K7b", cummax_int32(c), c))
+        mixed.append(("K7a", prefix_sum(w), w))
+        mixed.append(("K1", systematic_counts_fused(w, total, u), w))
+    for what, out, inp in mixed:
+        if what == "K7b":
+            same("between K7a and K1 calls", out, inp)
+        else:
+            ref = (prefix_sum_ref(w) if what == "K7a" else
+                   systematic_counts_fused_ref(w, total, u))
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{what} between K7b calls differs from "
+                                     "its plain version")
+    calls += 3
+    launches = _read_counters()
+    if launches["K7b"] != calls:
+        raise AssertionError(f"K7b launched {launches['K7b']} times for "
+                             f"{calls} calls")
+    print(f"[29] K7b cummax_int32 vs torch.cummax: bit-equal at N in "
+          f"{K7B_SIZES} on {', '.join(_k7b_inputs(gen, dev, 1))} inputs, "
+          "aligned and misaligned, on float bits (_monotone_cdf), three "
+          "calls in a row, and between K7a and K1 calls on one stream "
+          f"({calls} calls, launches {launches['K7b']})", flush=True)
+
+
+def _check_interp(res, t_len: int, d: int, what: str):
+    import torch
+    if not math.isfinite(float(res.ll)):
+        raise AssertionError(f"{what}: ll not finite")
+    for name, shape in (("eta_mean", (t_len,)), ("eta_lower", (t_len,)),
+                        ("eta_upper", (t_len,)), ("state_mean", (t_len, d)),
+                        ("state_lower", (t_len, d)),
+                        ("state_upper", (t_len, d))):
+        v = getattr(res, name)
+        if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what}: {name} is not finite {shape}")
+    if not (bool((res.state_lower <= res.state_upper).all())
+            and bool((res.eta_lower <= res.eta_upper).all())):
+        raise AssertionError(f"{what}: a lower bound exceeds its upper bound")
+
+
+def _tiers_agree(rp, rs, what: str):
+    """The path tier's and the summary tier's results on one seed: ll,
+    ESS and order statistics bit-equal, means within rtol 1e-6."""
+    import torch
+    for name in ("ll", "ess", "eta_lower", "eta_upper", "state_lower",
+                 "state_upper"):
+        if not torch.equal(getattr(rp, name), getattr(rs, name)):
+            raise AssertionError(f"{what}: summary tier's {name} differs "
+                                 "from the path tier's")
+    for name in ("eta_mean", "state_mean"):
+        torch.testing.assert_close(getattr(rs, name), getattr(rp, name),
+                                   rtol=1e-6, atol=0)
+
+
+# the flagship's knocked-out gap in phase 30 (100 steps at dt = 1)
+INTERP_GAP = (400.0, 499.0)
+N_INTERP_PATH = 2 ** 18
+
+
+def phase_interpolation(dev, device_line: str):
+    """[30] interpolation_filter on the flagship, T = 1000 with a 100-step
+    gap: store="summary" at N = 2^20 under "systematic" (K1, K4) and
+    "stratified" (K7a, K7b, K4), store="path" at N = 2^18 ("systematic"),
+    and the summary tier at N = 2^18 on the path tier's seed, equal to it;
+    launch counters around each run, ms/step."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+
+    model, params = flagship()
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_MAIN, dt=1.0).to_timeseries()
+    data = data.knock_out(*INTERP_GAP)
+    n_obs = int(data.mask.sum())
+    if n_obs != T_MAIN - 100:
+        raise AssertionError(f"the gap knocked out {T_MAIN - n_obs} steps")
+    # warm-up of both tiers at both N on the first 20 steps
+    head = ct.TimeSeries(data.ts[:20], data.ys[:20], data.mask[:20])
+    for n, store in ((N_MAIN, "summary"), (N_INTERP_PATH, "path")):
+        float(ct.interpolation_filter(
+            model, params, head, n, torch.Generator(device=dev).manual_seed(
+                599), store=store).ll)
+    out, lines = {}, []
+    for what, n, scheme, store, seed, per_obs in (
+            ("summary systematic", N_MAIN, "systematic", "summary", 600,
+             {"K1": 1, "K4": 2}),
+            ("summary stratified", N_MAIN, "stratified", "summary", 601,
+             {"K7a": 1, "K7b": 1, "K4": 2}),
+            ("path systematic", N_INTERP_PATH, "systematic", "path", 602,
+             {"K1": 1, "K4": 1}),
+            ("summary systematic", N_INTERP_PATH, "systematic", "summary",
+             602, {"K1": 1, "K4": 2})):
+        torch.cuda.synchronize()
+        _reset_counters()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = ct.interpolation_filter(
+            model, params, data, n, torch.Generator(device=dev).manual_seed(
+                seed), resample=scheme, store=store)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        launches = _read_counters()
+        want = {k: 0 for k in launches}
+        want.update({k: v * n_obs for k, v in per_obs.items()})
+        if launches != want:
+            raise AssertionError(f"interpolation {what} N={n}: launches "
+                                 f"{launches}, expected {want}")
+        _check_interp(res, T_MAIN, model.dim, f"interpolation {what}")
+        if (store == "path") != (res.paths is not None):
+            raise AssertionError(f"interpolation {what}: paths")
+        out[(store, scheme, n)] = (res, ms, launches)
+        lines.append(f"{what} N={n}: ll {float(res.ll):.3f}, {ms:.1f} ms, "
+                     f"{ms / T_MAIN:.4f} ms/step, launches "
+                     f"{ {k: v for k, v in launches.items() if v} }")
+    _tiers_agree(out[("path", "systematic", N_INTERP_PATH)][0],
+                 out[("summary", "systematic", N_INTERP_PATH)][0],
+                 "flagship")
+    print(f"[30] interpolation_filter flagship d={model.dim} T={T_MAIN}, "
+          f"gap {INTERP_GAP} ({n_obs} observed steps); CUDA events, one run "
+          "each: " + "; ".join(lines) + f"; the summary tier at "
+          f"N={N_INTERP_PATH} equals the path tier on its seed; "
+          f"{device_line}", flush=True)
+    return {f"{s} {sc} N={n}": {"ms_per_step": v[1] / T_MAIN,
+                                "launches": v[2]}
+            for (s, sc, n), v in out.items()}
+
+
+def phase_interpolation_oracle(dev, runs: int = 8, n_schemes: int = 2 ** 16,
+                               t_schemes: int = 50):
+    """[31] interpolation_filter on the Kalman oracle (T = 200): the
+    summary tier's ll at N = 2^18 ("systematic") within 4 se of Kalman over
+    ``runs`` runs; then every other scheme name and a callable, both tiers
+    at N = 2^16 on the first ``t_schemes`` steps, one seed each, the tiers
+    equal."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.inference import resampling as rs
+
+    model = ct.linear(ct.brownian_motion(1))
+    params = ct.parameters(math.log(0.5), ct.brownian_params(0.0, 1.0, 0.4))
+    data = ct.simulate_regular(
+        model, params, torch.Generator(device=dev).manual_seed(7),
+        T_ORACLE).to_timeseries()
+    kf_ll = float(ct.kalman_filter(model, params, data).ll)
+    lls = []
+    for r in range(runs):
+        res = ct.interpolation_filter(
+            model, params, data, N_ORACLE,
+            torch.Generator(device=dev).manual_seed(800 + r),
+            store="summary")
+        _check_interp(res, T_ORACLE, 1, "oracle")
+        lls.append(float(res.ll))
+    mean = statistics.fmean(lls)
+    se = statistics.stdev(lls) / math.sqrt(runs)
+    if not abs(mean - kf_ll) <= 4 * se:
+        raise AssertionError("interpolation disagrees with the Kalman oracle "
+                             "by more than 4 standard errors")
+
+    def custom(g, w):
+        # a user's scheme; it must draw the same ancestors from the same
+        # generator state for the tiers to agree, which torch.multinomial
+        # did not on the card (two runs from one seed gave different lls)
+        return rs.stratified_indices(g, w)
+
+    done = []
+    head = ct.TimeSeries(data.ts[:t_schemes], data.ys[:t_schemes],
+                         data.mask[:t_schemes])
+    for scheme in ("stratified", "multinomial", "residual", "identity",
+                   custom):
+        name = getattr(scheme, "__name__", scheme)
+        tiers = [ct.interpolation_filter(
+            model, params, head, n_schemes,
+            torch.Generator(device=dev).manual_seed(820), resample=scheme,
+            store=store) for store in ("path", "summary")]
+        for res in tiers:
+            _check_interp(res, t_schemes, 1, f"oracle {name}")
+        _tiers_agree(*tiers, f"oracle {name}")
+        done.append(f"{name} {float(tiers[0].ll):.3f}")
+    print(f"[31] interpolation_filter oracle T={T_ORACLE}: summary tier "
+          f"N={N_ORACLE} mean ll {mean:.4f} (se {se:.4f}, {runs} runs) vs "
+          f"Kalman {kf_ll:.4f}: {abs(mean - kf_ll) / se:.2f} se; both tiers "
+          f"at N={n_schemes}, T={t_schemes}, equal, under "
+          + ", ".join(done), flush=True)
+
+
+# LGCP at the JAX bench's shape (bench.py:395-430): N, the fine grid's
+# precision, runs per scheme
+N_LGCP, LGCP_PRECISION, LGCP_RUNS = 2 ** 17, 1, 6
+
+
+def lgcp_case(dev):
+    """The JAX bench's LGCP: lgcp(brownian_motion(1)), events simulated by
+    the port over [0, 20] at seed 2; returns the model, parameters, series
+    and the fine grid's slots K."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.inference.lgcp import (
+        _build_fine_grid)
+
+    model = ct.lgcp(ct.brownian_motion(1))
+    params = ct.parameters(None, ct.brownian_params(1.0, 0.05, 0.1))
+    events, _ = ct.simulate_lgcp(model, params,
+                                 torch.Generator(device=dev).manual_seed(2),
+                                 0.0, 20.0)
+    data = events.to_timeseries()
+    k = len(_build_fine_grid(data.ts.cpu().double().numpy(),
+                             LGCP_PRECISION)[0])
+    return model, params, data, k
+
+
+def phase_lgcp(dev, device_line: str):
+    """[32] lgcp_filter at the JAX bench's shape under "systematic" (K1,
+    K4) and "stratified" (K7a, K7b, K4): finite ll, ordered intervals,
+    launch counters, the two schemes' lls within 4 joint se over
+    LGCP_RUNS runs each; particle-slot-steps/s = N * K over the best run's
+    seconds (host clock ending in the ll's host read, as the JAX bench)."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+
+    model, params, data, k = lgcp_case(dev)
+    n_obs = len(data)
+    out, lines = {}, []
+    for scheme, per_obs in (("systematic", {"K1": 1, "K4": 1}),
+                            ("stratified", {"K7a": 1, "K7b": 1, "K4": 1})):
+        def run(seed):
+            return ct.lgcp_filter(
+                model, params, data, N_LGCP,
+                torch.Generator(device=dev).manual_seed(seed),
+                precision=LGCP_PRECISION, resample=scheme)
+
+        float(run(900).ll)                       # warm-up
+        torch.cuda.synchronize()
+        _reset_counters()
+        lls, secs = [], []
+        for r in range(LGCP_RUNS):
+            t0 = time.perf_counter()
+            res = run(901 + r)
+            lls.append(float(res.ll))            # the host read ends the run
+            secs.append(time.perf_counter() - t0)
+            if not (bool((res.state_lower <= res.state_upper).all())
+                    and bool((res.eta_lower <= res.eta_upper).all())
+                    and bool(torch.isfinite(res.state_mean).all())):
+                raise AssertionError(f"lgcp {scheme}: intervals")
+        launches = _read_counters()
+        want = {key: 0 for key in launches}
+        want.update({key: v * n_obs * LGCP_RUNS
+                     for key, v in per_obs.items()})
+        if launches != want:
+            raise AssertionError(f"lgcp {scheme}: launches {launches}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(v) for v in lls):
+            raise AssertionError(f"lgcp {scheme}: ll not finite: {lls}")
+        rate = N_LGCP * k / min(secs)
+        out[scheme] = {"lls": lls, "rate": rate, "launches": launches,
+                       "ms_per_run": statistics.median(secs) * 1e3}
+        lines.append(f"{scheme}: mean ll {statistics.fmean(lls):.4f} (se "
+                     f"{statistics.stdev(lls) / math.sqrt(LGCP_RUNS):.4f}), "
+                     f"best {min(secs) * 1e3:.2f} ms, median "
+                     f"{statistics.median(secs) * 1e3:.2f} ms, {rate:.4g} "
+                     "particle-slot-steps/s, launches "
+                     f"{ {key: v for key, v in launches.items() if v} }")
+    a, b = out["systematic"]["lls"], out["stratified"]["lls"]
+    joint = math.hypot(statistics.stdev(a), statistics.stdev(b)) / math.sqrt(
+        LGCP_RUNS)
+    gap = abs(statistics.fmean(a) - statistics.fmean(b))
+    print(f"[32] lgcp_filter lgcp(brownian(1)) N={N_LGCP} precision="
+          f"{LGCP_PRECISION}, {n_obs} events, K={k} slots, {LGCP_RUNS} runs "
+          "each: " + "; ".join(lines) + f"; schemes {gap / joint:.2f} joint "
+          f"se apart; {device_line}", flush=True)
+    if not gap <= 4 * joint:
+        raise AssertionError("lgcp systematic and stratified disagree by more "
+                             "than 4 joint standard errors")
+    return out, k
+
+
+def phase_new_paths_device(dev, t_len: int = 100):
+    """[33] the device time per step of the new paths (torch.profiler, one
+    run each, last for the same reason as phase 28): interpolation on the
+    flagship's first ``t_len`` steps at N = 2^20 (summary, "systematic")
+    and N = 2^18 (path), and one LGCP run at the bench's shape; per step,
+    the kernels and the device time summed over them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import composablestatespacemodels_torch as ct
+
+    model, params = flagship()
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               t_len, dt=1.0).to_timeseries()
+    lg_model, lg_params, lg_data, k = lgcp_case(dev)
+    runs = {
+        f"interpolation summary N={N_MAIN}": (t_len, lambda g: float(
+            ct.interpolation_filter(model, params, data, N_MAIN, g,
+                                    store="summary").ll)),
+        f"interpolation path N={N_INTERP_PATH}": (t_len, lambda g: float(
+            ct.interpolation_filter(model, params, data, N_INTERP_PATH,
+                                    g).ll)),
+        f"lgcp N={N_LGCP} (per slot)": (k, lambda g: float(
+            ct.lgcp_filter(lg_model, lg_params, lg_data, N_LGCP, g,
+                           precision=LGCP_PRECISION).ll)),
+    }
+    out = {}
+    for what, (steps, fn) in runs.items():
+        fn(torch.Generator(device=dev).manual_seed(1))     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(torch.Generator(device=dev).manual_seed(2))
+        wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            raise AssertionError(f"{what}: the profiler saw no CUDA kernel")
+        us = sum(e.time_range.elapsed_us() for e in kernels)
+        out[what] = {"device_us_per_step": us / steps,
+                     "kernels_per_step": len(kernels) / steps,
+                     "profiled_wall_ms_per_step": wall * 1e3 / steps}
+    print(f"[33] device time per step (torch.profiler, one run each; "
+          f"interpolation T={t_len}): " + "; ".join(
+              f"{k_}: {v['device_us_per_step']:.1f} us in "
+              f"{v['kernels_per_step']:.1f} kernels per step (profiled wall "
+              f"{v['profiled_wall_ms_per_step']:.3f} ms/step)"
+              for k_, v in out.items()), flush=True)
+    return out
+
+
+# CUDA kernels one call of each wrapper launches at its timing inputs (K6
+# batched at N = 100: one tile); the kernels of ONE_KERNEL must launch one
+KERNELS_PER_CALL = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 1,
                     "K6b": 1, "K8": 1}
-ONE_KERNEL = ("K1", "K4", "K7a", "K6b", "K8")
+ONE_KERNEL = ("K1", "K4", "K7a", "K7b", "K6b", "K8")
 # K8's device time is also taken at these (B, N), d = 7, T = T_PMMH
 K8_DEVICE_SHAPES = ((1, N_PMMH), (CHAINS, N_PMMH), (1, 512))
 
@@ -1801,6 +2217,12 @@ def phase_device(inputs, scan_w, k3, k6b_512, ptxas):
         host_us_per_call=_host_us(lambda: prefix_sum(scan_w)),
         library_host_us_per_call=_host_us(lambda: torch.cumsum(scan_w, 0)),
         library_device_ms=cum[0], library_device_kernels_per_call=cum[1])
+    scan_c = inputs["K7b"][0]
+    cmx = _profile(lambda: torch.cummax(scan_c, 0))
+    out["K7b"].update(
+        host_us_per_call=_host_us(lambda: cummax_int32(scan_c)),
+        library_host_us_per_call=_host_us(lambda: torch.cummax(scan_c, 0)),
+        library_device_ms=cmx[0], library_device_kernels_per_call=cmx[1])
     out["K1"]["host_us_per_call"] = _host_us(
         lambda: systematic_counts_fused(*inputs["K1"]))
     ptxas_k6b_k8 = [ln for ln in ptxas
@@ -1823,12 +2245,15 @@ def phase_device(inputs, scan_w, k3, k6b_512, ptxas):
           + f"; K6 batched at [{CHAINS}, 512] {k6b_512[0]} ms in "
           f"{k6b_512[1]:g} kernels; K8 at d=7, T={T_PMMH}: " + ", ".join(
               f"{k} {v} ms" for k, v in k8_shapes.items())
-          + f"; torch.cumsum {cum[0]} ms in {cum[1]:g} kernels; host per "
+          + f"; torch.cumsum {cum[0]} ms in {cum[1]:g} kernels; "
+          f"torch.cummax {cmx[0]} ms in {cmx[1]:g} kernels; host per "
           f"call (1000 calls, no sync): K1 "
           f"{out['K1']['host_us_per_call']:.2f} us, K6 batched "
           f"{out['K6b']['host_us_per_call']:.2f} us, K7a "
           f"{out['K7a']['host_us_per_call']:.2f} us, torch.cumsum "
-          f"{out['K7a']['library_host_us_per_call']:.2f} us; ptxas: "
+          f"{out['K7a']['library_host_us_per_call']:.2f} us, K7b "
+          f"{out['K7b']['host_us_per_call']:.2f} us, torch.cummax "
+          f"{out['K7b']['library_host_us_per_call']:.2f} us; ptxas: "
           f"{' | '.join(ptxas_k6b_k8)}; K8 at N={N_PMMH}, d=7 (CUDA "
           f"runtime): {occ['registers']} registers, {occ['local_bytes']} B "
           f"local, {occ['blocks_per_sm']} blocks per SM x {sms} SMs = "
@@ -1853,6 +2278,7 @@ def main() -> int:
                          "torch.cuda.is_available() is False")
     from composablestatespacemodels_torch.ops import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     device_line = _device_line()
     print(f"[1] device: {torch.cuda.get_device_name(0)}; torch "
@@ -1905,6 +2331,15 @@ def main() -> int:
          "K6b": counts_b_in, "K8": sweep_in}, scan_in[0], k3, counts_b_512,
         ptxas)
     phase_main_device(dev)
+    # slice 8: K7b's edges, interpolation and LGCP
+    t_new = time.perf_counter()
+    phase_k7b_edges(gen, dev)
+    interp = phase_interpolation(dev, device_line)
+    phase_interpolation_oracle(dev)
+    lgcp, _ = phase_lgcp(dev, device_line)
+    new_device = phase_new_paths_device(dev)
+    print(f"[34] phases 29-33 took {time.perf_counter() - t_new:.1f} s; the "
+          f"script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # bound_ms from this run's inputs: each input read once, each output
     # written once; operations counted per element as noted beside each
@@ -1998,6 +2433,21 @@ def main() -> int:
     kernels[1]["ms_by_counts_regime"] = {
         k: [v, k2_regimes_15[k]] for k, v in k2_regimes.items()}
     kernels[2]["ms_by_counts_regime"] = k4_regimes
+    # the launches of slice 8's paths, each read around its runs
+    by_name = dict(zip(("K1", "K2", "K4", "K5", "K7a", "K7b", "K6b", "K8"),
+                       kernels))
+    for path, counts in (
+            *((f"interpolation {k}", v["launches"]) for k, v in
+              interp.items()),
+            *((f"lgcp {k}", v["launches"]) for k, v in lgcp.items())):
+        for key, v in counts.items():
+            if v:
+                by_name[key].setdefault("launches_by_path", {})[path] = v
+    paths_line = {"interpolation": interp, "lgcp": {
+        k: {"particle_slot_steps_per_s": v["rate"],
+            "ms_per_run": v["ms_per_run"]} for k, v in lgcp.items()},
+        "device_per_step": new_device}
+    print(json.dumps({"paths": paths_line}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,11 @@ launch (PMMH: ``pmmh``, ``pmmh_chains``, ``adaptive_pmmh``,
 families (Gaussian, Poisson, zero-inflated Poisson, negative binomial,
 Bernoulli, Student-t, Beta) inside K2, K5 and K8.  ``bootstrap_filter``
 takes every resampling scheme of the JAX package and a custom one, and
-forecasting advances a filtering cloud or posterior draws.  On CPU
-tensors the kernels' plain PyTorch versions run instead.
+forecasting advances a filtering cloud or posterior draws.
+``interpolation_filter`` smooths through gaps from the filter's genealogy
+and ``lgcp_filter`` filters a log-Gaussian Cox process on a fine grid,
+both resampling through K1 + K4 or K7a + K7b + K4.  On CPU tensors the
+kernels' plain PyTorch versions run instead.
 """
 
 __version__ = "0.1.0"
@@ -27,9 +30,10 @@ from .inference import (FilterResult, Forecast, ForecastCloud, KalmanResult,
                         bootstrap_filter, credible_interval_eta,
                         credible_interval_state, effective_chain_size,
                         forecast, forecast_cloud, forecast_from_posterior,
-                        forecast_times, gelman_rubin, kalman_filter,
-                        log_likelihood, make_pf_loglik,
-                        make_pf_loglik_chains, pilot_run, pmmh_chains)
+                        forecast_times, gelman_rubin, interpolation_filter,
+                        kalman_filter, lgcp_filter, log_likelihood,
+                        make_pf_loglik, make_pf_loglik_chains, pilot_run,
+                        pmmh_chains)
 from .inference.pmmh import pmmh
 from .models import (bernoulli, beta, branch, brownian_motion,
                      brownian_params, compose, gen_brownian_motion,
@@ -37,7 +41,8 @@ from .models import (bernoulli, beta, branch, brownian_motion,
                      negative_binomial, ou_params, ou_process, param_node,
                      parameters, params_from_numpy, poisson, seasonal,
                      students_t, zero_inflated_poisson)
-from .utils import SimulatedData, TimeSeries, simulate, simulate_regular
+from .utils import (SimulatedData, TimeSeries, simulate, simulate_lgcp,
+                    simulate_regular)
 
 __all__ = [
     "models", "inference", "ops", "utils",
@@ -49,9 +54,10 @@ __all__ = [
     "bootstrap_filter", "log_likelihood", "FilterResult", "PfSummary",
     "forecast", "forecast_cloud", "forecast_times", "forecast_from_posterior",
     "Forecast", "ForecastCloud", "credible_interval_eta", "credible_interval_state",
-    "kalman_filter", "KalmanResult",
+    "kalman_filter", "KalmanResult", "lgcp_filter", "interpolation_filter",
     "pmmh", "pmmh_chains", "adaptive_pmmh", "make_pf_loglik",
     "make_pf_loglik_chains", "pilot_run", "gelman_rubin",
     "effective_chain_size", "PmmhResult", "PmmhState",
     "TimeSeries", "SimulatedData", "simulate", "simulate_regular",
+    "simulate_lgcp",
 ]

@@ -24,8 +24,10 @@
 // the tile's sum, adds the sums of the tiles before it in the three-pass
 // order and writes its prefix once.  Its flags and tile sums live in a
 // workspace that the wrapper keeps per device and stream (K1 shares it),
-// so a call allocates only its output.  K7b keeps two launches (scan, then
-// carry).
+// so a call allocates only its output.  K7b is the same one launch with an
+// int32 maximum: each tile publishes its maximum under the second flag and
+// raises its values to the maximum of the tiles before it, as K1's carry
+// does, in the same workspace.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,17 +85,58 @@ __global__ void __launch_bounds__(kThreads)
   finish_tile(ws, tiles);
 }
 
+// The one-launch running max: the same scan with an int32 maximum in
+// place of the float64 sum (see scan.cuh's one-launch scan).  Each tile
+// maxes its values within the thread and across the tile (tile_cummax_store's
+// arithmetic), publishes its maximum under the epoch-tagged flag of the
+// workspace's second half and raises its values to the maximum of the tiles
+// before it (publish_and_carry, K1's carry).  An int max is exact in any
+// order, so the result equals torch.cummax bit for bit.
 __global__ void __launch_bounds__(kThreads)
-    cummax_scan(const int* __restrict__ x, int* __restrict__ out,
-                int* __restrict__ bmax, int64_t n) {
+    cummax_one_launch(const int* __restrict__ x, int* __restrict__ out,
+                      int64_t n, ScanWorkspace ws, unsigned long long epoch,
+                      unsigned long long tiles) {
   __shared__ int ism[kWarps];
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x * kItems;
+  __shared__ unsigned long long slot;
+  const int64_t b = take_tile(ws, &slot);
+  const int64_t base = b * kTile + threadIdx.x * kItems;
+  const bool whole = base + kItems <= n;
   int c[kItems];
+  if (whole && ((uintptr_t)x & 15) == 0) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(x + base));
+    c[0] = q.x;
+    c[1] = q.y;
+    c[2] = q.z;
+    c[3] = q.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      c[k] = base + k < n ? __ldg(x + base + k) : INT_MIN;
+    }
+  }
+  // the items past n are INT_MIN, which raise no maximum
+  int run = INT_MIN;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    c[k] = base + k < n ? __ldg(x + base + k) : INT_MIN;
+    run = max(run, c[k]);
+    c[k] = run;
   }
-  tile_cummax_store(c, out, bmax, n, blockIdx.x, ism);
+  const int ex = block_exclusive_max(run, ism);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) c[k] = max(c[k], ex);
+  // at thread kThreads - 1, c[kItems - 1] is the tile's maximum
+  const int carry = publish_and_carry(ws, epoch, b, c[kItems - 1], ism);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) c[k] = max(c[k], carry);
+  if (whole && ((uintptr_t)out & 15) == 0) {
+    *reinterpret_cast<int4*>(out + base) = make_int4(c[0], c[1], c[2], c[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (base + k < n) out[base + k] = c[k];
+    }
+  }
+  finish_tile(ws, tiles);
 }
 
 }  // namespace cssm
@@ -120,18 +163,28 @@ extern "C" int cssm_prefix_sum(const void* x, void* out, void* ws, int64_t n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int cssm_cummax_int32(const void* x, void* out, void* bmax,
-                                 int64_t n, int device, void* stream) {
+// ws: the shared workspace of `capacity` tiles (ticket, done, a flag and a
+// sum per tile, then a flag and a maximum per tile; K7b uses the counters
+// and the second half), zeroed when it was made; epoch: a value this
+// workspace has not seen, never 0.  Sets the device only when it is not the
+// current one.
+extern "C" int cssm_cummax_int32(const void* x, void* out, void* ws,
+                                 int64_t capacity, int64_t n,
+                                 unsigned long long epoch, int device,
+                                 void* stream) {
   using namespace cssm;
-  cudaError_t err = cudaSetDevice(device);
+  int current;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((n + kTile - 1) / kTile);
-  cudaStream_t s = (cudaStream_t)stream;
-  cummax_scan<<<blocks, kThreads, 0, s>>>((const int*)x, (int*)out,
-                                          (int*)bmax, n);
-  if (blocks > 1) {
-    cummax_carry<int><<<blocks - 1, kThreads, 0, s>>>((int*)out,
-                                                      (const int*)bmax, n);
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  if (n <= 0 || epoch == 0 || tiles > capacity) {
+    return (int)cudaErrorInvalidValue;
   }
+  auto* words = (unsigned long long*)ws;
+  const ScanWorkspace w{words, words + 1, (ScanTile*)(words + 2),
+                        (ScanMax*)(words + 2 + 2 * capacity)};
+  cummax_one_launch<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)x, (int*)out, n, w, epoch, (unsigned long long)tiles);
   return (int)cudaGetLastError();
 }

@@ -8,21 +8,22 @@
 // share this header: a fixed tile of kThreads x kItems elements, a float64
 // prefix rounded to float32 per entry, and an exact int32 running max.  The
 // TPU walks its grid in order and carries the prefix and the running max in
-// SMEM; Hopper blocks run in parallel.  K7b, and K6 batched on rows longer
-// than a tile, scan in passes:
+// SMEM; Hopper blocks run in parallel.  K6 batched on rows longer than a
+// tile scans in passes:
 //   1. tile_sums: each tile's float64 sum;
 //   2. tile_prefix (+ tile_cummax_store): each tile adds up the sums of the
 //      tiles before it, scans its own elements and, for the running max,
 //      writes its values maxed within the tile and its tile maximum;
 //   3. cummax_carry: each tile takes the maximum of the tiles before it and
 //      raises its values to it (left after one read when nothing crosses).
-// K7a and K1 scan in one launch (take_tile .. finish_tile below): a block
+// K7a, K1 and K7b scan in one launch (take_tile .. finish_tile below): a block
 // takes its tile from a ticket counter, publishes the tile's sum with a
 // flag, waits for the flags of the tiles before it and adds their sums in
 // pass 2's order, so the input is read once and the bits are the passes'
 // bits.  K1 then publishes its tile maximum under a second flag and takes
 // the maximum of the tiles before it (publish_and_carry): pass 3's carry,
-// without a second read or write of the counts.
+// without a second read or write of the counts.  K7b takes only that carry
+// (no sums).
 // A row of at most one tile needs no pass 1 (no tile comes before it) and
 // only ceil(n / 128) of the tile's warps (short tiles, below): K6 batched
 // on such rows and K8 run blocks sized to the row with the same bits.
@@ -318,15 +319,16 @@ __device__ __forceinline__ void tile_cummax_store(int (&c)[kItems],
   if (threadIdx.x == kThreads - 1) bmax[b] = max(run, ex);
 }
 
-// ---- The one-launch scan (K7a, K1) --------------------------------------
+// ---- The one-launch scan (K7a, K1, K7b) ---------------------------------
 //
 // The workspace (cached per device and stream by the wrapper, zeroed once
-// when it is made, shared by K7a and K1) holds a ticket counter, a count of
-// finished blocks and, per tile, a 64-bit flag with a float64 sum and a
-// second flag with the tile's int32 maximum (K1 only).  Each call passes a
-// fresh epoch (never 0): tile b's flag equals the epoch once its sum (or
-// maximum) holds this call's, so flags left by earlier calls, of either
-// kernel, never satisfy a wait and no call clears them.
+// when it is made, shared by K7a, K1 and K7b) holds a ticket counter, a
+// count of finished blocks and, per tile, a 64-bit flag with a float64 sum
+// (K7a, K1) and a second flag with the tile's int32 maximum (K1, K7b).
+// Each call passes a fresh epoch (never 0): tile b's flag equals the epoch
+// once its sum (or maximum) holds this call's, so flags left by earlier
+// calls, of any of the three kernels, never satisfy a wait and no call
+// clears them.
 //   * Tiles are handed out in the order blocks start (take_tile), not by
 //     blockIdx: a block only ever waits for tiles whose blocks already run,
 //     so the scan cannot deadlock however many tiles there are.
@@ -354,7 +356,7 @@ struct ScanWorkspace {
   unsigned long long* ticket;   // tiles handed out in this call
   unsigned long long* done;     // blocks finished in this call
   ScanTile* tile;               // [capacity], flag and sum in one sector
-  ScanMax* tile_max;            // [capacity], K1's running-max carry
+  ScanMax* tile_max;            // [capacity], K1's and K7b's max carry
 };
 
 __device__ __forceinline__ void st_release(unsigned long long* p,

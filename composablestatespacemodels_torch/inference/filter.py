@@ -270,17 +270,33 @@ def _initial_cloud(model: Model, params: Tree, generator, n: int, x_init):
 
 
 def _resample_step(scheme, generator, x1, wn1, u_i):
-    """The resampled cloud: K4 with the counts of a counts scheme (``u_i``
-    the step's systematic uniform), or an index gather along dim 1."""
+    """The resampled cloud and what chose it: K4 with the counts of a
+    counts scheme (``u_i`` the step's systematic uniform), or an index
+    gather along dim 1 with the scheme's ancestor indices.  Returns ``(x,
+    counts or indices)``."""
     n = x1.shape[1]
     if scheme == "systematic":
-        return sorted_gather_resample_t(x1, rs.systematic_counts(wn1, u_i))
-    if scheme in _COUNTS:
+        counts = rs.systematic_counts(wn1, u_i)
+    elif scheme in _COUNTS:
         u = torch.rand(n, generator=generator, device=x1.device)
         counts_fn = (rs.stratified_counts if scheme == "stratified"
                      else rs.multinomial_counts)
-        return sorted_gather_resample_t(x1, counts_fn(wn1, u))
-    return x1[:, rs.get_scheme(scheme)(generator, wn1).long()]
+        counts = counts_fn(wn1, u)
+    else:
+        idx = rs.get_scheme(scheme)(generator, wn1)
+        return x1[:, idx.long()], idx
+    return sorted_gather_resample_t(x1, counts), counts
+
+
+def _propagate(model: Model, params: Tree, coef_i, dt_i, x, generator):
+    """The ``[d, N]`` cloud ``x`` propagated over one step: the exact
+    transition with the step's ``coef_i [d, 3]`` (a, b, sqrt q) and normals
+    from ``generator``, or Euler-Maruyama over ``dt_i`` where ``coef_i`` is
+    None (no exact transition)."""
+    if coef_i is None:
+        return model.step_t(params, generator, x, dt_i)
+    z = torch.randn(x.shape, generator=generator, device=x.device)
+    return coef_i[:, 0:1] * x + coef_i[:, 1:2] + coef_i[:, 2:3] * z
 
 
 def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
@@ -296,7 +312,7 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
     device = generator.device
     params = params_to(params, device)
     sp = model.sde_params(params)
-    d, n = model.dim, n_particles
+    n = n_particles
     ts, ys, mask = data.ts, data.ys, data.mask
     n_steps = len(observed)
     save = _make_save_fn_t(model, store, interval, ess_threshold is not None,
@@ -341,11 +357,9 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
             x1, logw = propagate_weights_t(
                 x, coef[i], None if family_id is None else consts[i],
                 seeds[i], family_id)
-        elif exact:
-            z = torch.randn((d, n), generator=generator, device=device)
-            x1 = coef[i, :, 0:1] * x + coef[i, :, 1:2] + coef[i, :, 2:3] * z
         else:
-            x1 = model.step_t(params, generator, x, dts[i])
+            x1 = _propagate(model, params, coef[i] if exact else None,
+                            dts[i], x, generator)
         resample = False
         if observed[i]:
             if logw is None:
@@ -359,7 +373,7 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
         else:
             wn1 = wn / torch.sum(wn)
         if resample:
-            x = _resample_step(scheme, generator, x1, wn1, uniforms[i])
+            x, _ = _resample_step(scheme, generator, x1, wn1, uniforms[i])
             wn = uniform_w
         else:
             x, wn = x1, wn1

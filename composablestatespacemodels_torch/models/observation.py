@@ -408,8 +408,8 @@ class Beta(ObservationFamily):
 class LogGaussianCox(ObservationFamily):
     """Log-Gaussian Cox process: events arrive with hazard exp(gamma(t)).
     As in the reference (Model.scala:363-369), it has no pointwise
-    likelihood: only a dedicated LGCP filter and a thinning simulator use
-    it, and neither is ported yet."""
+    likelihood: only the LGCP filter (``inference.lgcp.lgcp_filter``) and
+    the thinning simulator (``utils.data.simulate_lgcp``) use it."""
 
     needs_scale = False
 

@@ -43,7 +43,8 @@ _SIGNATURES = {
                                 _P],
     "cssm_prefix_sum": [_P, _P, _P, ctypes.c_int64, ctypes.c_uint64,
                         ctypes.c_int, _P],
-    "cssm_cummax_int32": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    "cssm_cummax_int32": [_P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+                          ctypes.c_uint64, ctypes.c_int, _P],
     "cssm_gather": [_P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                     _P],
     "cssm_propagate_weights": [_P, _P, _P, _P, _P, _P, ctypes.c_int,

@@ -29,8 +29,8 @@ K7a (:func:`prefix_sum`, replacing ``prefix_sum`` :613) and K7b
 (:func:`cummax_int32`, replacing ``cummax_int32`` :480) are the same tile
 scan without the counts (``csrc/scan.cu``): every prefix of the port adds
 in one order (``scan_kernel.py:617-620`` of the JAX package), and
-``inference/resampling.py::_cumsum_ref`` replays it.  K7a and K1 run that
-order in one launch, with their tile sums, maxima and flags in one
+``inference/resampling.py::_cumsum_ref`` replays it.  K7a, K1 and K7b run
+in one launch each, with their tile sums, maxima and flags in one
 workspace kept per device and stream, so a call allocates only its
 output.
 
@@ -166,9 +166,9 @@ def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
     return rs._cumsum_ref(x)
 
 
-# The one-launch scan's workspace per (device index, stream), shared by K7a
-# and K1: [ticket, done, then a flag and a tile sum per tile, then a flag
-# and a tile maximum per tile] as int64 words, for a capacity of
+# The one-launch scan's workspace per (device index, stream), shared by K7a,
+# K1 and K7b: [ticket, done, then a flag and a tile sum per tile, then a
+# flag and a tile maximum per tile] as int64 words, for a capacity of
 # (numel - 2) / 4 tiles, zeroed once (csrc/scan.cuh, the one-launch scan).
 # Calls on one stream run in order, and each kernel's last block resets the
 # counters, so a workspace needs no clearing between calls; two streams
@@ -222,16 +222,23 @@ def cummax_int32_ref(c: torch.Tensor) -> torch.Tensor:
 
 
 def cummax_int32(c: torch.Tensor) -> torch.Tensor:
-    """Exact inclusive running max of int32 ``c [N]``."""
-    if c.device.type == "cpu":
-        return cummax_int32_ref(c)
-    _check_flat(c, torch.int32, "c", "K7b")
-    n = c.shape[0]
+    """Exact inclusive running max of int32 ``c [N]``, in one launch."""
+    if not c.is_cuda:
+        if c.device.type == "cpu":
+            return cummax_int32_ref(c)
+        _check_flat(c, torch.int32, "c", "K7b")          # raises
+    # the checks of _check_flat without its costlier device test
+    if not (c.dtype is torch.int32 and c.dim() == 1 and c.is_contiguous()
+            and c.numel()):
+        _check_flat(c, torch.int32, "c", "K7b")          # raises
+    n = c.numel()
+    index = c.get_device()
+    stream = _build.cuda_stream(index)
+    ws = _scan_workspace(c, index, stream, -(-n // _TILE))
     out = torch.empty_like(c)
-    bmax = torch.empty(-(-n // _TILE), dtype=torch.int32, device=c.device)
     err = _build.lib().cssm_cummax_int32(
-        c.data_ptr(), out.data_ptr(), bmax.data_ptr(), n, c.device.index,
-        _build.cuda_stream(c.device))
+        c.data_ptr(), out.data_ptr(), ws.data_ptr(), (ws.numel() - 2) // 4, n,
+        next(_SCAN_EPOCHS), index, stream)
     _build.check(err, "cssm_cummax_int32")
     cummax_int32.launches += 1
     return out

@@ -1,16 +1,19 @@
 """Time-series containers and forward simulation.
 
-PyTorch port of ``TimeSeries``, ``SimulatedData``, ``simulate`` and
-``simulate_regular`` from ``composablestatespacemodels_tpu/utils/data.py``
-(reference: Data.scala).  A time series is ``(ts, ys, mask)``: irregular
-times and missing observations are data.  Simulation draws from an
-explicit ``torch.Generator``; the data lands on the generator's device.
+PyTorch port of ``TimeSeries``, ``SimulatedData``, ``simulate``,
+``simulate_regular``, ``simulate_sde_grid`` and ``simulate_lgcp`` from
+``composablestatespacemodels_tpu/utils/data.py`` (reference: Data.scala).
+A time series is ``(ts, ys, mask)``: irregular times and missing
+observations are data.  Simulation draws from an explicit
+``torch.Generator``; the data lands on the generator's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 from ..models.params import params_to
@@ -94,3 +97,62 @@ def simulate_regular(model, params, generator: torch.Generator, n: int,
     """Regular-grid simulation from t0 (reference default dt: Data.scala:54)."""
     ts = t0 + dt * torch.arange(n, dtype=torch.float32)
     return simulate(model, params, generator, ts)
+
+
+def simulate_sde_grid(sde, sde_params, generator: torch.Generator, x0,
+                      t0: float, total: float, precision: int):
+    """Fine-grid SDE path with step 10^-precision from ``(t0, x0)``:
+    ``(ts [n+1], xs [n+1, dim])`` (SimulateData.simSdeStream,
+    Data.scala:162-176)."""
+    dt = 10.0 ** (-precision)
+    n = int(math.floor(total / dt + 1e-9))
+    return sde.simulate(sde_params, generator, t0, dt, n, x0=x0)
+
+
+def simulate_lgcp(model, params, generator: torch.Generator, start: float,
+                  end: float, precision: int = 2):
+    """Simulate a log-Gaussian Cox process by thinning
+    (SimulateData.simLGCP, Data.scala:110-149).
+
+    The fine-grid latent path and its hazards are computed on the
+    generator's device; the accept/reject loop over exponential candidate
+    times runs on the host (numpy, seeded from the generator).  Returns
+    ``(events, grid)``: the accepted event times as :class:`SimulatedData`
+    (y = 1.0) and the fine-grid trace (y = 0.0)."""
+    model.validate_params(params)
+    device = generator.device
+    params = params_to(params, device)
+    x0 = model.initial_state(params, generator)
+    ts, xs = simulate_sde_grid(model.sde, model.sde_params(params),
+                               generator, x0, start, end - start, precision)
+    gammas = (xs * model.design_vector(ts)).sum(dim=-1)
+
+    ts_np, xs_np, gam_np = (v.cpu().numpy() for v in (ts, xs, gammas))
+    upper = float(np.exp(gam_np).max())
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator,
+                             device=device))
+    rng = np.random.default_rng(seed)
+    events_t, events_g, events_x = [], [], []
+    t = float(start)
+    while True:
+        t = t + rng.exponential(1.0 / upper)
+        if t > end:
+            break
+        idx = int(np.searchsorted(ts_np, t, side="right") - 1)
+        hazard = gam_np[idx]
+        if rng.uniform() <= np.exp(hazard) / upper:
+            events_t.append(t)
+            events_g.append(hazard)
+            events_x.append(xs_np[idx])
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    g = f32(events_g)
+    events = SimulatedData(
+        f32(events_t), torch.ones(len(events_t), device=device),
+        torch.exp(g), g,
+        f32(events_x if events_t else np.zeros((0, model.dim))))
+    grid = SimulatedData(ts, torch.zeros_like(ts), torch.exp(gammas), gammas,
+                         xs)
+    return events, grid

@@ -37,6 +37,8 @@ def test_package_imports_with_jax_unavailable():
             "import composablestatespacemodels_torch as ct; "
             "import composablestatespacemodels_torch.ops.resample_kernel; "
             "import composablestatespacemodels_torch.ops.scan_kernel; "
+            "import composablestatespacemodels_torch.inference.interpolation; "
+            "import composablestatespacemodels_torch.inference.lgcp; "
             "print(ct.log_likelihood.__name__)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
