@@ -50,7 +50,17 @@ under ``"systematic"`` -- K1, K4 -- and ``"stratified"`` -- K7a, K7b, K4
 Kalman oracle and under every other scheme and a callable;
 ``lgcp_filter`` at the JAX bench's shape (N = 2^17, events simulated by
 ``simulate_lgcp`` over [0, 20]) under both schemes, with its
-particle-slot-steps/s; and the new paths' device time per step.
+particle-slot-steps/s; and the new paths' device time per step.  Then
+slice 9: ``utils.OnlineFilter`` on the flagship at N = 2^20 in 10
+chunks of 100 (store="summary", K1 + K4) against one
+``bootstrap_filter`` call, and on the Kalman oracle; ``pmmh_monitored``
+at N = 100, T = 400 in 3 checkpointed chunks of 20, resumed to 4 and
+equal bit for bit to an uninterrupted run, with and without
+``store_state``; the native IO tier built from the checkout and held to
+the Python parser on a 10^6-row CSV; and every example app
+(``composablestatespacemodels_torch.examples``) at its defaults with
+``--device cuda``, each app's launches read around it (K1, K4, K6
+batched, K7a, K7b, K8).
 Every check raises on failure.  Prints one line per phase, a JSON line
 of the new paths' rates, then a JSON line of per-kernel results (with
 each kernel's bound from this run's shapes, ``ms`` the back-to-back time
@@ -2152,6 +2162,412 @@ def phase_new_paths_device(dev, t_len: int = 100):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 9: streaming, monitored PMMH, the example apps, native IO
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 100          # T_MAIN in 10 chunks
+PMMH_CHUNK = 20             # pmmh_monitored: 3 chunks, then resume to 4
+IO_ROWS = 10 ** 6
+# the example apps' chains and iterations (the apps' own defaults otherwise:
+# n_obs 500, N 1000): the sweep, the chain axis, the monitored chain
+APP_CHAINS = 256
+APP_ITERS = {"fused": 100, "chains": 10, "monitored": 40}
+
+
+def _mean_se(lls):
+    return (statistics.fmean(lls),
+            statistics.stdev(lls) / math.sqrt(len(lls)))
+
+
+def _online(model, params, data, n, gen, store, chunk):
+    """One OnlineFilter pass over ``data`` in chunks of ``chunk`` steps."""
+    import composablestatespacemodels_torch as ct
+
+    f = ct.utils.OnlineFilter(model, params, n, gen, t0=float(data.ts[0]),
+                              store=store)
+    for i in range(0, len(data), chunk):
+        res = f.step(ct.TimeSeries(data.ts[i:i + chunk],
+                                   data.ys[i:i + chunk],
+                                   data.mask[i:i + chunk]))
+        if store == "summary":
+            _check_summary(res, min(chunk, len(data) - i), model.dim,
+                           "OnlineFilter")
+    if f.n_observed != len(data):
+        raise AssertionError(f"OnlineFilter saw {f.n_observed} of "
+                             f"{len(data)} steps")
+    return f
+
+
+def phase_streaming(dev, device_line: str, runs: int = 2,
+                    ll_runs: int = 6):
+    """[35] OnlineFilter on the flagship at N = 2^20, T = 1000 in 10 chunks
+    of 100 (store="summary", "systematic": K1 + K4 per observed step)
+    against one bootstrap_filter call on the same data: ``runs`` timed runs
+    of each (launch counters around them), and ``ll_runs`` more of each
+    with store="ll" (the same draws as "summary" on one seed) for the
+    standard error; the summed ll within 4 joint se of the unchunked.
+    Then the oracle in chunks of 20 within 4 se of Kalman."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+
+    model, params = flagship()
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_MAIN, dt=1.0).to_timeseries()
+    n_obs = int(data.mask.sum())
+
+    def chunked(gen, store):
+        return _online(model, params, data, N_MAIN, gen, store,
+                       STREAM_CHUNK).ll
+
+    def unchunked(gen, store):
+        res = ct.bootstrap_filter(model, params, data, N_MAIN, gen,
+                                  store=store)
+        if store == "summary":
+            _check_summary(res, T_MAIN, model.dim, "bootstrap_filter")
+        return res.ll
+
+    _online(model, params, ct.TimeSeries(data.ts[:STREAM_CHUNK],
+                                         data.ys[:STREAM_CHUNK],
+                                         data.mask[:STREAM_CHUNK]),
+            N_MAIN, torch.Generator(device=dev).manual_seed(699), "summary",
+            STREAM_CHUNK)   # warm-up
+    out = {}
+    for what, fn, seed in (("chunked", chunked, 700),
+                           ("unchunked", unchunked, 720)):
+        torch.cuda.synchronize()
+        _reset_counters()
+        ms, lls = [], []
+        for r in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ll = fn(torch.Generator(device=dev).manual_seed(seed + r),
+                    "summary")
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            lls.append(float(ll))
+        launches = _read_counters()
+        want = {k: 0 for k in launches}
+        want.update(K1=runs * n_obs, K4=runs * n_obs)
+        if launches != want:
+            raise AssertionError(f"streaming {what}: launches {launches}, "
+                                 f"expected {want}")
+        lls += [float(fn(torch.Generator(device=dev).manual_seed(
+            seed + runs + r), "ll")) for r in range(ll_runs)]
+        if not all(math.isfinite(v) for v in lls):
+            raise AssertionError(f"streaming {what}: ll not finite: {lls}")
+        out[what] = {"ms_per_step": statistics.median(ms) / T_MAIN,
+                     "lls": lls, "launches": launches}
+    (mc, sc), (mu, su) = (_mean_se(out[k]["lls"])
+                          for k in ("chunked", "unchunked"))
+    joint = math.hypot(sc, su)
+    if not abs(mc - mu) <= 4 * joint:
+        raise AssertionError(f"chunked ll {mc} vs unchunked {mu}: more than "
+                             f"4 joint se ({joint})")
+
+    o_model = ct.linear(ct.brownian_motion(1))
+    o_params = ct.parameters(math.log(0.5), ct.brownian_params(0.0, 1.0, 0.4))
+    o_data = ct.simulate_regular(
+        o_model, o_params, torch.Generator(device=dev).manual_seed(7),
+        T_ORACLE).to_timeseries()
+    kf = float(ct.kalman_filter(o_model, o_params, o_data).ll)
+    o_lls = [float(_online(o_model, o_params, o_data, N_ORACLE,
+                           torch.Generator(device=dev).manual_seed(740 + r),
+                           "ll", 20).ll) for r in range(8)]
+    mo, so = _mean_se(o_lls)
+    if not abs(mo - kf) <= 4 * so:
+        raise AssertionError(f"chunked oracle ll {mo} (se {so}) vs Kalman "
+                             f"{kf}: more than 4 se")
+    out["oracle"] = {"mean_ll": mo, "se": so, "kalman": kf}
+    print(f"[35] OnlineFilter flagship d={model.dim} N={N_MAIN} T={T_MAIN} "
+          f"in {T_MAIN // STREAM_CHUNK} chunks of {STREAM_CHUNK}, "
+          f"store=summary, systematic: "
+          f"{out['chunked']['ms_per_step']:.4f} ms/step chunked vs "
+          f"{out['unchunked']['ms_per_step']:.4f} unchunked (CUDA events, "
+          f"median of {runs}); mean ll {mc:.3f} (se {sc:.3f}) vs {mu:.3f} "
+          f"(se {su:.3f}), {abs(mc - mu) / joint:.2f} joint se "
+          f"({runs} summary + {ll_runs} ll runs each); launches "
+          f"{ {k: v for k, v in out['chunked']['launches'].items() if v} } "
+          f"over {runs} chunked runs; oracle T={T_ORACLE} N={N_ORACLE} in "
+          f"chunks of 20: mean ll {mo:.4f} (se {so:.4f}) vs Kalman "
+          f"{kf:.4f}, {abs(mo - kf) / so:.2f} se; {device_line}",
+          flush=True)
+    return out
+
+
+def phase_pmmh_monitored(dev, device_line: str):
+    """[36] pmmh_monitored on the flagship, N = 100, T = 400 (make_pf_loglik:
+    K1 + K4 per observed step): 3 chunks of 20 with a checkpoint in a
+    temporary directory, then a second call resumes to 4 chunks; the
+    result equals an uninterrupted 4-chunk run bit for bit; the same with
+    store_state=True.  Launch counters around the two checkpointed calls
+    (the resume under store_state evaluates the filter once more for the
+    latent state's shape)."""
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.models import perturb, stack_flat
+    from composablestatespacemodels_torch.utils.streaming import (
+        pmmh_monitored)
+
+    model, params = flagship()
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_PMMH, dt=1.0).to_timeseries()
+    n_obs = int(data.mask.sum())
+    prop = perturb(0.05)
+    out, lines = {}, []
+    for store_state in (False, True):
+        pf = ct.make_pf_loglik(model, data, N_PMMH, store_state=store_state)
+
+        def run(n_iters, path):
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            res = pmmh_monitored(
+                torch.Generator(device=dev).manual_seed(40), params, pf,
+                prop, n_iters, chunk_size=PMMH_CHUNK,
+                store_state=store_state, checkpoint_path=path, out=log)
+            float(res.lls.sum())
+            return res, time.perf_counter() - t0, log.getvalue()
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "chain.npz")
+            torch.cuda.synchronize()
+            _reset_counters()
+            first, s_first, _ = run(3 * PMMH_CHUNK, path)
+            resumed, s_resume, log = run(4 * PMMH_CHUNK, path)
+            launches = _read_counters()
+        full, s_full, _ = run(4 * PMMH_CHUNK, None)
+        what = f"store_state={store_state}"
+        evals = 4 * PMMH_CHUNK + (1 if store_state else 0)
+        want = {k: 0 for k in launches}
+        want.update(K1=evals * n_obs, K4=evals * n_obs)
+        if launches != want:
+            raise AssertionError(f"pmmh_monitored {what}: launches "
+                                 f"{launches}, expected {want}")
+        if f"at chunk 3/4" not in log:
+            raise AssertionError(f"pmmh_monitored {what}: no resume: {log}")
+        head = 3 * PMMH_CHUNK
+        pairs = [(first.lls, full.lls[:head]),
+                 (first.accepted, full.accepted[:head]),
+                 (resumed.lls, full.lls), (resumed.accepted, full.accepted),
+                 (stack_flat(resumed.params), stack_flat(full.params))]
+        if store_state:
+            pairs.append((resumed.states, full.states))
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"pmmh_monitored {what}: the resumed chain "
+                                 "differs from the uninterrupted one")
+        if not bool(torch.isfinite(full.lls).all()):
+            raise AssertionError(f"pmmh_monitored {what}: ll not finite")
+        rate = 4 * PMMH_CHUNK / s_full
+        out[what] = {"iters_per_s": rate, "launches": launches,
+                     "checkpointed_iters_per_s":
+                         4 * PMMH_CHUNK / (s_first + s_resume)}
+        lines.append(
+            f"{what}: {rate:.2f} iters/s uninterrupted, "
+            f"{out[what]['checkpointed_iters_per_s']:.2f} with checkpoints "
+            f"and the resume; acceptance "
+            f"{float(full.acceptance_rate()):.3f}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+    print(f"[36] pmmh_monitored flagship N={N_PMMH} T={T_PMMH}, chunks of "
+          f"{PMMH_CHUNK}: 3 chunks, then resumed to 4, bit-equal to an "
+          "uninterrupted run (lls, accepted, params; states); "
+          + "; ".join(lines) + f"; {device_line}", flush=True)
+    return out
+
+
+def _csv_rows(path, header: bool = False):
+    import numpy as np
+    with open(path) as f:
+        lines = f.read().strip().split("\n")
+    return np.asarray([ln.split(",") for ln in lines[int(header):]],
+                      dtype=float)
+
+
+def phase_clis(dev, device_line: str):
+    """[38] the example apps on the card with --device cuda at their
+    defaults (n_obs 500, N 1000, d = 9), in a temporary directory: each
+    app's main() with the launch counters set to 0 just before and read
+    just after; each output file parsed with the port's readers."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from composablestatespacemodels_torch.examples import (
+        determine_parameters, filtering, interpolate, simulate)
+    from composablestatespacemodels_torch.utils import io as tio
+
+    cuda = ["--device", str(dev)]
+    out, lines = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "d")
+        sims = d + "_sims.json"
+
+        def app(what, main, argv, want):
+            torch.cuda.synchronize()
+            _reset_counters()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                main(argv + cuda)
+            seconds = time.perf_counter() - t0
+            launches = _read_counters()
+            expected = {k: 0 for k in launches}
+            expected.update(want)
+            if launches != expected:
+                raise AssertionError(f"app {what}: launches {launches}, "
+                                     f"expected {expected}")
+            out[what] = {"s": seconds, "launches": launches}
+            lines.append(f"{what} {seconds:.2f} s "
+                         f"{ {k: v for k, v in launches.items() if v} }")
+            return buf.getvalue()
+
+        app("simulate model", simulate.main, ["model", "--out", d], {})
+        data = tio.read_timeseries_json(sims, device=dev)
+        n_obs = int(data.mask.sum())
+        if len(data) != 500 or _csv_rows(d + "_sims.csv").shape != (500, 13):
+            raise AssertionError("simulate model: wrong output shape")
+        text = app("filtering", filtering.main, [sims, "--out", d],
+                   {"K1": n_obs, "K4": n_obs})
+        rows = _csv_rows(d + "_filtered.csv")
+        if (rows.shape != (500, 14) or not np.isfinite(rows).all()
+                or not math.isfinite(float(text.split()[2].rstrip(";")))):
+            raise AssertionError(f"filtering: {text!r}, rows {rows.shape}")
+        text = app("pilot --fused-sweep", determine_parameters.main,
+                   ["pilot", sims, "--fused-sweep", "--out", d],
+                   {"K8": 4, "K6b": n_obs})
+        pilot = [ln.split(",") for ln in text.strip().split("\n")[1:]]
+        if ([int(p[0]) for p in pilot] != [100, 200, 500, 1000, 2000]
+                or not all(math.isfinite(float(p[1])) for p in pilot)):
+            raise AssertionError(f"pilot: {text!r}")
+        out["pilot --fused-sweep"]["rows"] = [
+            [int(p[0]), float(p[1]), float(p[2])] for p in pilot]
+        rhat = {}
+        it = APP_ITERS
+        for what, extra, iters, want in (
+                (f"posterior --chains {APP_CHAINS} --fused-sweep",
+                 ["--fused-sweep"], it["fused"], {"K8": it["fused"]}),
+                (f"posterior --chains {APP_CHAINS}", [], it["chains"],
+                 {"K6b": it["chains"] * n_obs})):
+            pd = d + ("_pf" if extra else "_pc")
+            text = app(what, determine_parameters.main,
+                       ["posterior", sims, "--chains", str(APP_CHAINS),
+                        "--n-iters", str(iters), "--out", pd] + extra, want)
+            rhat[what] = float(text.split("R-hat(ll): ")[1].split()[0])
+            for c in (0, APP_CHAINS - 1):
+                _, lls, _ = tio.read_posterior_json(
+                    f"{pd}_posterior_{c}.json", device=dev)
+                if len(lls) != iters or not bool(torch.isfinite(lls).all()):
+                    raise AssertionError(f"{what}: chain {c} posterior")
+            out[what]["rhat_ll"] = rhat[what]
+        iters = it["monitored"]
+        text = app("posterior monitored", determine_parameters.main,
+                   ["posterior", sims, "--chains", "1", "--n-iters",
+                    str(iters), "--out", d],
+                   {"K1": iters * n_obs, "K4": iters * n_obs})
+        _, lls, _ = tio.read_posterior_json(d + "_posterior.json",
+                                            device=dev)
+        if len(lls) != iters or not bool(torch.isfinite(lls).all()):
+            raise AssertionError("posterior monitored: posterior")
+        csv = os.path.join(tmp, "posterior.csv")
+        app("tocsv", determine_parameters.main,
+            ["tocsv", d + "_posterior.json", csv], {})
+        if _csv_rows(csv, header=True).shape != (iters, 12):
+            raise AssertionError("tocsv: wrong shape")
+        for scheme, per in (("systematic", {"K1": 1, "K4": 1}),
+                            ("stratified", {"K7a": 1, "K7b": 1, "K4": 1})):
+            # the default knock-out window [420, 450] leaves 469 observed
+            app(f"interpolate {scheme}", interpolate.main,
+                ["--resample", scheme, "--out", d],
+                {k: v * 469 for k, v in per.items()})
+            rows = _csv_rows(d + "_interpolated.csv")
+            if (rows.shape != (500, 5) or int(rows[:, 4].sum()) != 469
+                    or not np.isfinite(rows).all()
+                    or not (rows[:, 2] <= rows[:, 3]).all()):
+                raise AssertionError(f"interpolate {scheme}: output")
+        app("simulate lgcp", simulate.main, ["lgcp", "--out", d], {})
+        ev = _csv_rows(d + "_lgcp.csv")
+        if ev.ndim != 2 or ev.shape[1] != 5 or not (ev[:, 0] <= 10).all():
+            raise AssertionError("simulate lgcp: output")
+    print("[38] example apps, --device cuda, defaults (n_obs 500, N 1000, "
+          "d = 9), host clock and launches: " + "; ".join(lines)
+          + f"; R-hat(ll) {rhat}; {device_line}", flush=True)
+    return out
+
+
+def phase_native_io(dev):
+    """[37] the port's native IO tier on the card machine's host: built
+    with g++ here, before any other reader runs (the phase fails if it
+    does not build); a 10^6-row CSV with NA, empty and
+    whitespace-only rows read by the native and by the pure-Python
+    parser onto the card, equal bit for bit; both parse times."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from composablestatespacemodels_torch.native import loader
+    from composablestatespacemodels_torch.utils import io as tio
+
+    t0 = time.perf_counter()
+    if not loader.available():
+        raise AssertionError("the native IO tier did not build: "
+                             f"{loader.library_path()}")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(38)
+    ts = np.cumsum(rng.uniform(0.01, 1.0, IO_ROWS))
+    ys = rng.normal(3.0, 2.0, IO_ROWS)
+    kind = rng.uniform(size=IO_ROWS)
+    rows = [f"{t},NA" if k < 0.05 else f"{t}," if k < 0.1
+            else f"{t},{y}\n  " if k < 0.11 else f"{t},{y}"
+            for t, y, k in zip(ts.tolist(), ys.tolist(), kind.tolist())]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "big.csv")
+        with open(path, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        times = {}
+        t0 = time.perf_counter()
+        native = tio.read_timeseries_csv(path, device=dev)
+        torch.cuda.synchronize()
+        times["native"] = time.perf_counter() - t0
+        saved = loader._lib, loader._tried
+        loader._lib, loader._tried = None, True
+        try:
+            t0 = time.perf_counter()
+            python = tio.read_timeseries_csv(path, device=dev)
+            torch.cuda.synchronize()
+            times["python"] = time.perf_counter() - t0
+        finally:
+            loader._lib, loader._tried = saved
+    if len(native) != IO_ROWS:
+        raise AssertionError(f"native parse: {len(native)} rows")
+    for f in ("ts", "ys", "mask"):
+        if not torch.equal(getattr(native, f), getattr(python, f)):
+            raise AssertionError(f"native and Python parsers differ in {f}")
+    n_missing = IO_ROWS - int(native.mask.sum())
+    print(f"[37] native IO tier built and loaded in {build_s:.2f} s; "
+          f"{IO_ROWS} rows ({n_missing} missing, "
+          f"{int(((kind >= 0.1) & (kind < 0.11)).sum())} whitespace-only "
+          f"lines): native {times['native']:.3f} s, Python "
+          f"{times['python']:.3f} s to a series on the card, bit for bit "
+          "equal", flush=True)
+    return {"rows": IO_ROWS, "native_s": times["native"],
+            "python_s": times["python"]}
+
+
 # CUDA kernels one call of each wrapper launches at its timing inputs (K6
 # batched at N = 100: one tile); the kernels of ONE_KERNEL must launch one
 KERNELS_PER_CALL = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 1,
@@ -2340,6 +2756,14 @@ def main() -> int:
     new_device = phase_new_paths_device(dev)
     print(f"[34] phases 29-33 took {time.perf_counter() - t_new:.1f} s; the "
           f"script {time.perf_counter() - t_start:.1f} s", flush=True)
+    # slice 9: streaming, monitored PMMH, the example apps, native IO
+    t_new = time.perf_counter()
+    streaming = phase_streaming(dev, device_line)
+    monitored = phase_pmmh_monitored(dev, device_line)
+    native_io = phase_native_io(dev)
+    apps = phase_clis(dev, device_line)
+    print(f"[39] phases 35-38 took {time.perf_counter() - t_new:.1f} s; the "
+          f"script {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # bound_ms from this run's inputs: each input read once, each output
     # written once; operations counted per element as noted beside each
@@ -2439,14 +2863,26 @@ def main() -> int:
     for path, counts in (
             *((f"interpolation {k}", v["launches"]) for k, v in
               interp.items()),
-            *((f"lgcp {k}", v["launches"]) for k, v in lgcp.items())):
+            *((f"lgcp {k}", v["launches"]) for k, v in lgcp.items()),
+            ("OnlineFilter (2 runs)", streaming["chunked"]["launches"]),
+            *((f"pmmh_monitored {k}", v["launches"]) for k, v in
+              monitored.items()),
+            *((f"app {k}", v["launches"]) for k, v in apps.items())):
         for key, v in counts.items():
             if v:
                 by_name[key].setdefault("launches_by_path", {})[path] = v
     paths_line = {"interpolation": interp, "lgcp": {
         k: {"particle_slot_steps_per_s": v["rate"],
             "ms_per_run": v["ms_per_run"]} for k, v in lgcp.items()},
-        "device_per_step": new_device}
+        "device_per_step": new_device,
+        "streaming": {k: {"ms_per_step": v["ms_per_step"]} for k, v in
+                      streaming.items() if k != "oracle"},
+        "pmmh_monitored": {k: {"iters_per_s": v["iters_per_s"],
+                               "checkpointed_iters_per_s":
+                                   v["checkpointed_iters_per_s"]}
+                           for k, v in monitored.items()},
+        "apps_s": {k: v["s"] for k, v in apps.items()},
+        "native_io": native_io}
     print(json.dumps({"paths": paths_line}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,12 +19,16 @@ forecasting advances a filtering cloud or posterior draws.
 ``interpolation_filter`` smooths through gaps from the filter's genealogy
 and ``lgcp_filter`` filters a log-Gaussian Cox process on a fine grid,
 both resampling through K1 + K4 or K7a + K7b + K4.  On CPU tensors the
-kernels' plain PyTorch versions run instead.
+kernels' plain PyTorch versions run instead.  ``utils`` reads and writes
+the JAX package's file formats (``native`` is its C++ parser tier),
+streams chunks through a persistent filter (``OnlineFilter``) and runs
+long PMMH chains with checkpoints (``pmmh_monitored``); ``examples`` are
+the command-line apps.
 """
 
 __version__ = "0.1.0"
 
-from . import inference, models, ops, utils
+from . import inference, models, native, ops, utils
 from .inference import (FilterResult, Forecast, ForecastCloud, KalmanResult,
                         PfSummary, PmmhResult, PmmhState, adaptive_pmmh,
                         bootstrap_filter, credible_interval_eta,
@@ -45,7 +49,7 @@ from .utils import (SimulatedData, TimeSeries, simulate, simulate_lgcp,
                     simulate_regular)
 
 __all__ = [
-    "models", "inference", "ops", "utils",
+    "models", "inference", "native", "ops", "utils",
     "poisson", "linear", "seasonal", "students_t", "bernoulli", "beta",
     "negative_binomial", "zero_inflated_poisson", "lgcp", "compose",
     "brownian_motion", "gen_brownian_motion", "ou_process",

@@ -68,12 +68,24 @@ class Branch(Tree):
         return f"Branch({self.left!r}, {self.right!r})"
 
 
+class EmptyTree(Tree):
+    """The empty tree (no parameters); ``Empty`` is its one instance."""
+
+    __slots__ = ()
+
+    def __repr__(self):
+        return "Empty"
+
+
+Empty = EmptyTree()
+
+
 def tree_map(f: Callable, tree, *rest):
     """``f`` applied to the corresponding tensors of ``tree`` and ``rest``,
     which share its structure: :class:`Tree` nodes, tuples and lists,
     dataclasses (parameter records) and tensors; None stays None."""
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, EmptyTree):
+        return tree
     if isinstance(tree, Leaf):
         return Leaf(tree_map(f, tree.value, *(r.value for r in rest)))
     if isinstance(tree, Branch):

@@ -1,11 +1,15 @@
 """Time-series containers and forward simulation.
 
 PyTorch port of ``TimeSeries``, ``SimulatedData``, ``simulate``,
-``simulate_regular``, ``simulate_sde_grid`` and ``simulate_lgcp`` from
+``simulate_regular``, ``simulate_sde_grid``, ``simulate_lgcp``,
+``timeseries_from_timestamps`` and ``timestamps_of`` from
 ``composablestatespacemodels_tpu/utils/data.py`` (reference: Data.scala).
 A time series is ``(ts, ys, mask)``: irregular times and missing
 observations are data.  Simulation draws from an explicit
-``torch.Generator``; the data lands on the generator's device.
+``torch.Generator``; the data lands on the generator's device.  A series
+built from host values (:meth:`TimeSeries.from_arrays`, the readers of
+:mod:`.io`) lands on the device asked for, ``"cuda"`` unless the caller
+names another; :meth:`TimeSeries.to` moves one.
 """
 
 from __future__ import annotations
@@ -17,6 +21,13 @@ import numpy as np
 import torch
 
 from ..models.params import params_to
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or an array-like as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,12 +42,40 @@ class TimeSeries:
     def __len__(self):
         return int(self.ts.shape[0])
 
+    @classmethod
+    def from_arrays(cls, ts, ys=None, device="cuda") -> "TimeSeries":
+        """Build from times and values; NaN / None entries become missing."""
+        ts = np.asarray(ts, dtype=np.float64)
+        if ys is None:
+            ys_arr = np.full(ts.shape, np.nan)
+        else:
+            ys_arr = np.asarray(
+                [np.nan if y is None else y
+                 for y in np.asarray(ys, dtype=object)], dtype=np.float64)
+        mask = ~np.isnan(ys_arr)
+        return cls(torch.tensor(ts.astype(np.float32), device=device),
+                   torch.tensor(np.where(mask, ys_arr, 0.0).astype(np.float32),
+                                device=device),
+                   torch.tensor(mask, device=device))
+
+    def to(self, device) -> "TimeSeries":
+        """The series on ``device`` (the filters run where their generator
+        is and take the data from there)."""
+        return TimeSeries(self.ts.to(device), self.ys.to(device),
+                          self.mask.to(device))
+
     def knock_out(self, t_lo: float, t_hi: float) -> "TimeSeries":
         """Mark observations with t in [t_lo, t_hi] as missing
         (Interpolate.scala:31-34)."""
         drop = (self.ts >= t_lo) & (self.ts <= t_hi)
         return TimeSeries(self.ts, torch.where(drop, 0.0, self.ys),
                           self.mask & ~drop)
+
+    def thin(self, step: int) -> "TimeSeries":
+        return TimeSeries(self.ts[::step], self.ys[::step], self.mask[::step])
+
+    def take(self, n: int) -> "TimeSeries":
+        return TimeSeries(self.ts[:n], self.ys[:n], self.mask[:n])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,3 +195,40 @@ def simulate_lgcp(model, params, generator: torch.Generator, start: float,
     grid = SimulatedData(ts, torch.zeros_like(ts), torch.exp(gammas), gammas,
                          xs)
     return events, grid
+
+
+# ---------------------------------------------------------------------------
+# timestamped observations (reference TimestampObservation, Data.scala:45)
+# ---------------------------------------------------------------------------
+
+
+def timeseries_from_timestamps(timestamps, ys=None, unit: str = "h",
+                               epoch=None, device="cuda"):
+    """Build a :class:`TimeSeries` on ``device`` from wall-clock timestamps.
+
+    Args:
+      timestamps: array-like of ``numpy.datetime64`` (or parseable strings).
+      ys: observations (None/NaN => missing).
+      unit: numpy timedelta unit of the continuous time axis ('h' hours,
+        'D' days, 's' seconds, ...).
+      epoch: the timestamp mapped to t = 0 (default: the first one).
+
+    Returns ``(timeseries, epoch)``; keep ``epoch`` to map filter output
+    times back to timestamps with :func:`timestamps_of`.  The times are
+    computed on the host in numpy.
+    """
+    stamps = np.asarray(timestamps, dtype="datetime64[ns]")
+    epoch = stamps[0] if epoch is None else np.datetime64(epoch)
+    ts = (stamps - epoch) / np.timedelta64(1, unit)
+    return TimeSeries.from_arrays(ts.astype(np.float64), ys,
+                                  device=device), epoch
+
+
+def timestamps_of(ts, epoch, unit: str = "h"):
+    """Continuous times (an array or a tensor on any device) -> numpy
+    ``datetime64[ns]`` stamps (the inverse of
+    :func:`timeseries_from_timestamps`)."""
+    epoch = np.datetime64(epoch)
+    deltas = (to_numpy(ts) * np.timedelta64(1, unit).astype(
+        "timedelta64[ns]").astype(np.float64)).astype("timedelta64[ns]")
+    return epoch + deltas
