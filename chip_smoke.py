@@ -60,7 +60,18 @@ equal bit for bit to an uninterrupted run, with and without
 the Python parser on a 10^6-row CSV; and every example app
 (``composablestatespacemodels_torch.examples``) at its defaults with
 ``--device cuda``, each app's launches read around it (K1, K4, K6
-batched, K7a, K7b, K8).
+batched, K7a, K7b, K8).  Last, the mesh routes in a world of
+one rank over NCCL (``parallel.initialize_distributed()``,
+``make_mesh(1, 1)``): the flagship at N = 2^20 through
+``bootstrap_filter(mesh=)`` under "systematic" (K7a, K7b, K4; the JAX
+bench's ``sharded_particle_steps_per_sec``), the fused one-shard
+delegation (K1, K2; ``sharded_fused_*``) and the fused summary with the
+ESS trigger (K5, K7a, K7b, K4), each against its single-device route; the
+ring's fill through K4 for S = 4 virtual shards of one cloud on five
+weight regimes, every (shard, hop) bit-equal to the plain fill;
+``sharded_pmmh`` and ``sharded_pmmh_monitored`` (resumed bit for bit),
+``lgcp_filter(mesh=)``, ``OnlineFilter(mesh=)`` and both apps with
+``--mesh``.
 Every check raises on failure.  Prints one line per phase, a JSON line
 of the new paths' rates, then a JSON line of per-kernel results (with
 each kernel's bound from this run's shapes, ``ms`` the back-to-back time
@@ -2568,6 +2579,456 @@ def phase_native_io(dev):
             "python_s": times["python"]}
 
 
+# ---------------------------------------------------------------------------
+# the mesh routes (parallel/) in a world of one rank over NCCL
+# ---------------------------------------------------------------------------
+
+# the JAX bench's sharded keys (bench.py:210-247): the machinery at T = 200
+# under "systematic", the fused delegation at T = 1000; the fused summary
+# with the ESS trigger at T = 100; timed runs each
+T_MESH, T_MESH_FUSED, T_MESH_SUMMARY, MESH_RUNS = 200, T_MAIN, 100, 3
+# the ring's virtual shards on the card (phase 40) and its weight regimes:
+# phase 15's counts regimes, "spikes" as weight on the first and last
+RING_SHARDS = 4
+RING_REGIMES = ("uniform", "mild", "heavy", "degenerate", "spikes")
+MESH_PMMH_ITERS, MESH_MONITORED_CHUNK, MESH_APP_ITERS = 20, 5, 4
+
+
+def _series(data, t_len: int):
+    """The first ``t_len`` steps of ``data``."""
+    import composablestatespacemodels_torch as ct
+    return ct.TimeSeries(data.ts[:t_len], data.ys[:t_len],
+                         data.mask[:t_len])
+
+
+def _timed_runs(run, seeds):
+    """Host seconds of each ``run(seed)`` (ending in a host read of the
+    ll) and the lls, after a warm-up run, with the launch counters set to
+    0 just before the timed runs and read just after."""
+    import torch
+    float(run(seeds[0] - 1).ll)
+    torch.cuda.synchronize()
+    _reset_counters()
+    secs, lls, results = [], [], []
+    for seed in seeds:
+        t0 = time.perf_counter()
+        res = run(seed)
+        lls.append(float(res.ll))
+        secs.append(time.perf_counter() - t0)
+        results.append(res)
+    return secs, lls, _read_counters(), results
+
+
+def _expect(launches, want, what):
+    expected = {k: 0 for k in launches}
+    expected.update(want)
+    if launches != expected:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{expected}")
+
+
+def _joint_se_check(a, b, what):
+    (ma, sa), (mb, sb) = _mean_se(a), _mean_se(b)
+    joint = math.hypot(sa, sb)
+    if not abs(ma - mb) <= 4 * joint:
+        raise AssertionError(f"{what}: {ma} vs {mb}, more than 4 joint se "
+                             f"({joint})")
+    return abs(ma - mb) / joint
+
+
+def nccl_world_of_one():
+    """A world of one rank over NCCL (initialize_distributed() with no
+    torchrun environment) and its make_mesh(1, 1) on cuda."""
+    import torch.distributed as dist
+
+    from composablestatespacemodels_torch.parallel import (
+        initialize_distributed, make_mesh)
+
+    initialize_distributed()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"expected a world of one over NCCL, got "
+                             f"{dist.get_world_size()} over "
+                             f"{dist.get_backend()}")
+    mesh = make_mesh(1, 1)
+    if mesh.device_type != "cuda":
+        raise AssertionError(f"mesh on {mesh.device_type}")
+    return mesh
+
+
+def phase_mesh_flagship(dev, device_line: str, mesh):
+    """[39] on ``mesh`` (a world of one rank over NCCL), the flagship at
+    N = 2^20 through bootstrap_filter(mesh=): "systematic", store "ll",
+    T = 200 (the distributed machinery: K7a and K7b for the window counts,
+    K4 for the local fill; the JAX bench's sharded_particle_steps_per_sec);
+    "systematic-pallas-fused", store "ll", T = 1000 (the one-shard
+    delegation to the fused filter: K1, K2; sharded_fused_*, and bit-equal
+    to log_likelihood on one seed); "systematic-pallas-fused" with store
+    "summary" and ess_threshold=0.5, T = 100 (K5 every step, K7a + K7b +
+    K4 at each triggered resample, the sharded weighted summary).  Each
+    route's ll within 4 joint se of its single-device route, the oracle
+    within 4 se of Kalman."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+
+    model, params = flagship()
+    data = ct.simulate_regular(model, params,
+                               torch.Generator(device=dev).manual_seed(0),
+                               T_MAIN, dt=1.0).to_timeseries()
+    seeds = list(range(1001, 1001 + MESH_RUNS))
+    ref_seeds = list(range(1101, 1101 + MESH_RUNS))
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    out, lines = {}, []
+    for what, t_len, kw in (
+            ("systematic", T_MESH, dict(store="ll")),
+            ("systematic-pallas-fused", T_MESH_FUSED, dict(store="ll")),
+            ("fused summary ess 0.5", T_MESH_SUMMARY,
+             dict(store="summary", ess_threshold=0.5))):
+        d = _series(data, t_len)
+        n_obs = int(d.mask.sum())
+        resample = "systematic" if what == "systematic" else \
+            "systematic-pallas-fused"
+
+        def run(seed, mesh_=mesh):
+            return ct.bootstrap_filter(model, params, d, N_MAIN, gen(seed),
+                                       resample=resample, mesh=mesh_, **kw)
+
+        secs, lls, launches, results = _timed_runs(run, seeds)
+        k = MESH_RUNS * n_obs
+        if what == "systematic":
+            want = {"K7a": k, "K7b": k, "K4": k}
+        elif what == "systematic-pallas-fused":
+            want = {"K1": k, "K2": k}
+        else:
+            # K5 every step; a resample at each observed step whose ESS
+            # fell below N / 2
+            fired = sum(int(((r.ess < 0.5 * N_MAIN) & d.mask).sum())
+                        for r in results)
+            want = {"K5": MESH_RUNS * t_len, "K7a": fired, "K7b": fired,
+                    "K4": fired}
+            for r in results:
+                _check_summary(r, t_len, model.dim, f"mesh {what}")
+            out["summary_resamples"] = fired
+        _expect(launches, want, f"mesh {what}")
+        if not all(math.isfinite(v) for v in lls):
+            raise AssertionError(f"mesh {what}: ll not finite: {lls}")
+        for r in results:
+            if tuple(r.final_particles.shape) != (N_MAIN, model.dim):
+                raise AssertionError(f"mesh {what}: final particles "
+                                     f"{tuple(r.final_particles.shape)}")
+        ref = [float(run(s, None).ll) for s in ref_seeds]
+        gap = _joint_se_check(lls, ref, f"mesh {what} vs single device")
+        rate = N_MAIN * t_len / min(secs)
+        out[what] = {"rate": rate, "ms_per_step": min(secs) / t_len * 1e3,
+                     "lls": lls, "launches": launches}
+        lines.append(f"{what} T={t_len}: best {min(secs) * 1e3:.1f} ms "
+                     f"({min(secs) / t_len * 1e3:.4f} ms/step, {rate:.4g} "
+                     f"particle-steps/s), {gap:.2f} joint se from the "
+                     f"single-device route, launches "
+                     f"{ {k: v for k, v in launches.items() if v} }")
+        if what == "systematic-pallas-fused":
+            one = ct.log_likelihood(model, params, d, N_MAIN, gen(seeds[0]),
+                                    resample="systematic-fused")
+            if float(one) != lls[0]:
+                raise AssertionError(f"delegated ll {lls[0]} != "
+                                     f"log_likelihood's {float(one)}")
+    o_model = ct.linear(ct.brownian_motion(1))
+    o_params = ct.parameters(math.log(0.5), ct.brownian_params(0.0, 1.0, 0.4))
+    o_data = ct.simulate_regular(o_model, o_params, gen(7),
+                                 T_ORACLE).to_timeseries()
+    kf = float(ct.kalman_filter(o_model, o_params, o_data).ll)
+    o_lls = [float(ct.bootstrap_filter(o_model, o_params, o_data, N_ORACLE,
+                                       gen(1200 + r), store="ll",
+                                       mesh=mesh).ll) for r in range(8)]
+    mo, so = _mean_se(o_lls)
+    if not abs(mo - kf) <= 4 * so:
+        raise AssertionError(f"mesh oracle ll {mo} (se {so}) vs Kalman {kf}")
+    out["oracle"] = {"mean_ll": mo, "se": so, "kalman": kf}
+    print(f"[39] bootstrap_filter(mesh=make_mesh(1, 1)) over NCCL, flagship "
+          f"d={model.dim} N={N_MAIN}, {MESH_RUNS} runs each: "
+          + "; ".join(lines) + f"; sharded_particle_steps_per_sec "
+          f"{out['systematic']['rate']:.6g}, "
+          f"sharded_fused_particle_steps_per_sec "
+          f"{out['systematic-pallas-fused']['rate']:.6g}; oracle T="
+          f"{T_ORACLE} N={N_ORACLE}: mean ll {mo:.4f} (se {so:.4f}) vs "
+          f"Kalman {kf:.4f}, {abs(mo - kf) / so:.2f} se; {device_line}",
+          flush=True)
+    return out
+
+
+def phase_mesh_ring(gen, dev, n: int = N_MAIN, d: int = 7,
+                    s: int = RING_SHARDS):
+    """[40] the ring's fill on the card: a 2^20 cloud at d = 7 as S = 4
+    virtual shards in one process, on the weights of each of
+    RING_REGIMES.  The window counts per shard (K7a, K7b), then for every
+    shard and every hop of the ring (all S, the degenerate regimes'
+    included) the fill through K4 held bit for bit to the plain fill, and
+    the assembled sample to the plain ring's and to the global sample
+    x[:, ancestors(counts)]."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from composablestatespacemodels_torch.inference import resampling as rs
+    from composablestatespacemodels_torch.ops.resample_kernel import (
+        sorted_gather_resample_t_ref)
+    from composablestatespacemodels_torch.parallel.sharded_filter import (
+        _counts_in_window, _kernel_fill, _plain_fill)
+
+    m = n // s
+    x = torch.randn((d, n), generator=gen, device=dev)
+    hops, cases = {}, 0
+    _reset_counters()
+    for regime in RING_REGIMES:
+        if regime == "spikes":
+            w = torch.zeros(n, device=dev)
+            w[0] = w[-1] = 0.5
+        else:
+            w = _weights(regime, n, gen, dev)
+        u = torch.rand((), generator=gen, device=dev)
+        cdfs = [rs._cumsum(w[i * m:(i + 1) * m]) for i in range(s)]
+        s_all = torch.stack([c[-1] for c in cdfs])
+        counts = [_counts_in_window(cdfs[i], s_all, u, i, s)
+                  for i in range(s)]
+        c_prev = [torch.zeros((), dtype=torch.int32, device=dev)] + [
+            c[-1] for c in counts[:-1]]
+        sample_k, sample_p, need = [], [], 0
+        for i in range(s):
+            shard = SimpleNamespace(idx=i)
+            slots = i * m + torch.arange(m, dtype=torch.int32, device=dev)
+            fk, fp = _kernel_fill(shard, slots), _plain_fill(shard, slots)
+            out_k = out_p = torch.zeros((d, m), device=dev)
+            filled_k = filled_p = torch.zeros(m, dtype=torch.bool,
+                                              device=dev)
+            for hop in range(s):
+                j = (i - hop) % s
+                xb = x[:, j * m:(j + 1) * m].contiguous()
+                out_k, filled_k = fk(out_k, filled_k, xb, counts[j],
+                                     c_prev[j])
+                out_p, filled_p = fp(out_p, filled_p, xb, counts[j],
+                                     c_prev[j])
+                if not (torch.equal(out_k, out_p)
+                        and torch.equal(filled_k, filled_p)):
+                    raise AssertionError(f"ring {regime}: shard {i} hop "
+                                         f"{hop}: K4's fill differs from the "
+                                         "plain fill")
+                cases += 1
+                if bool(filled_k.all()):
+                    need = max(need, hop + 1)
+                    break
+            if not bool(filled_k.all()):
+                raise AssertionError(f"ring {regime}: shard {i} unfilled "
+                                     f"after {s} hops")
+            sample_k.append(out_k)
+            sample_p.append(out_p)
+        got = torch.cat(sample_k, dim=1)
+        want = sorted_gather_resample_t_ref(x, torch.cat(counts))
+        if not (torch.equal(got, torch.cat(sample_p, dim=1))
+                and torch.equal(got, want)):
+            raise AssertionError(f"ring {regime}: the assembled sample "
+                                 "differs from the plain ring's or the "
+                                 "global sample")
+        hops[regime] = need
+    launches = _read_counters()
+    _expect(launches, {"K4": cases, "K7a": s * len(RING_REGIMES),
+                       "K7b": s * len(RING_REGIMES)}, "ring")
+    # one hop's fill, K4 against the plain fill, on the mild regime's shard 0
+    w = _weights("mild", n, gen, dev)
+    cdfs = [rs._cumsum(w[i * m:(i + 1) * m]) for i in range(s)]
+    s_all = torch.stack([c[-1] for c in cdfs])
+    c0 = _counts_in_window(cdfs[0], s_all, torch.tensor(0.5, device=dev), 0,
+                           s)
+    slots = torch.arange(m, dtype=torch.int32, device=dev)
+    args = (torch.zeros((d, m), device=dev),
+            torch.zeros(m, dtype=torch.bool, device=dev),
+            x[:, :m].contiguous(), c0,
+            torch.zeros((), dtype=torch.int32, device=dev))
+    shard = SimpleNamespace(idx=0)
+    fills = {"kernel": _kernel_fill(shard, slots),
+             "plain": _plain_fill(shard, slots)}
+    ms = {k: _cuda_ms(lambda f=f: f(*args), 50) for k, f in fills.items()}
+    device = {k: _profile(lambda f=f: f(*args))[:2] for k, f in fills.items()}
+    print(f"[40] ring fill, {s} virtual shards of N={n} at d={d}: every "
+          f"(shard, hop) fill through K4 bit-equal to the plain fill, and "
+          f"the sample to the plain ring's and the global one, on "
+          f"{', '.join(RING_REGIMES)} ({cases} fills); hops needed "
+          f"{hops}; one hop's fill at N/{s} (back to back; device ms in "
+          "kernels a call): " + ", ".join(
+              f"{k} {ms[k]:.4f} ms ({device[k][0]:.4f} ms in "
+              f"{device[k][1]:.0f})" for k in ms), flush=True)
+    return {"hops": hops, "fill_ms": ms,
+            "fill_device_ms": {k: v[0] for k, v in device.items()},
+            "fills": cases}
+
+
+def phase_mesh_routes(dev, device_line: str, mesh, lgcp_lls, stream_lls):
+    """[41] the other mesh routes on the card: sharded_pmmh on the flagship
+    at N = 100, T = 400, MESH_PMMH_ITERS iterations (K7a, K7b, K4 per
+    observed step); sharded_pmmh_monitored in 2 chunks, cut after one
+    (a checkpoint in a temporary directory) and resumed, bit-equal to the
+    uncut run; lgcp_filter(mesh=) at the LGCP bench's shape against phase
+    32's single-device lls; OnlineFilter(mesh=) on the flagship at N = 2^20
+    in 10 chunks of 100 (store "ll") against phase 35's unchunked lls; the
+    filtering and determine_parameters apps with --mesh."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.examples import (
+        determine_parameters, filtering, simulate)
+    from composablestatespacemodels_torch.models import perturb, stack_flat
+    from composablestatespacemodels_torch.parallel import (
+        sharded_pmmh, sharded_pmmh_monitored)
+    from composablestatespacemodels_torch.utils import io as tio
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    out, lines = {}, []
+    model, params = flagship()
+    data = ct.simulate_regular(model, params, gen(0), T_PMMH,
+                               dt=1.0).to_timeseries()
+    n_obs = int(data.mask.sum())
+    prop = perturb(0.05)
+    sharded_pmmh(model, params, data, N_PMMH, gen(1), 2, mesh,
+                 proposal=prop)                              # warm-up
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    res = sharded_pmmh(model, params, data, N_PMMH, gen(2), MESH_PMMH_ITERS,
+                       mesh, proposal=prop)
+    float(res.lls.sum())
+    secs = time.perf_counter() - t0
+    k = MESH_PMMH_ITERS * n_obs
+    _expect(_read_counters(), {"K7a": k, "K7b": k, "K4": k}, "sharded_pmmh")
+    if (tuple(res.lls.shape) != (1, MESH_PMMH_ITERS)
+            or not bool(torch.isfinite(res.lls).all())):
+        raise AssertionError(f"sharded_pmmh: lls {tuple(res.lls.shape)}")
+    out["sharded_pmmh"] = {"iters_per_s": MESH_PMMH_ITERS / secs,
+                           "launches": _read_counters()}
+    lines.append(f"sharded_pmmh N={N_PMMH} T={T_PMMH} {MESH_PMMH_ITERS} "
+                 f"iterations: {MESH_PMMH_ITERS / secs:.2f} iters/s, "
+                 f"acceptance {float(res.acceptance_rate()[0]):.2f}")
+
+    chunk = MESH_MONITORED_CHUNK
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "chain.npz")
+
+        def monitored(iters, path):
+            return sharded_pmmh_monitored(
+                gen(3), model, params, data, N_PMMH, iters, mesh,
+                proposal=prop, chunk_size=chunk, checkpoint_path=path,
+                log_every=False)
+
+        _reset_counters()
+        uncut = monitored(2 * chunk, None)
+        monitored(chunk, ck)
+        resumed = monitored(2 * chunk, ck)
+        launches = _read_counters()
+    k = 4 * chunk * n_obs
+    _expect(launches, {"K7a": k, "K7b": k, "K4": k}, "sharded_pmmh_monitored")
+    if not (torch.equal(uncut.lls, resumed.lls)
+            and torch.equal(stack_flat(uncut.params),
+                            stack_flat(resumed.params))):
+        raise AssertionError("sharded_pmmh_monitored: the resumed chain "
+                             "differs from the uncut one")
+    out["sharded_pmmh_monitored"] = {"launches": launches}
+    lines.append(f"sharded_pmmh_monitored 2 chunks of {chunk}, cut after one "
+                 "and resumed: bit-equal to the uncut chain")
+
+    l_model, l_params, l_data, slots = lgcp_case(dev)
+    n_ev = len(l_data)
+    secs, lls, launches, results = _timed_runs(
+        lambda seed: ct.lgcp_filter(l_model, l_params, l_data, N_LGCP,
+                                    gen(seed), precision=LGCP_PRECISION,
+                                    mesh=mesh),
+        list(range(1301, 1301 + MESH_RUNS)))
+    k = MESH_RUNS * n_ev
+    _expect(launches, {"K7a": k, "K7b": k, "K4": k}, "lgcp_filter(mesh=)")
+    for r in results:
+        if not (bool((r.eta_lower <= r.eta_upper).all())
+                and bool((r.state_lower <= r.state_upper).all())):
+            raise AssertionError("lgcp_filter(mesh=): intervals")
+    gap = _joint_se_check(lls, lgcp_lls, "lgcp_filter(mesh=) vs one device")
+    rate = N_LGCP * slots / min(secs)
+    out["lgcp"] = {"particle_slot_steps_per_s": rate, "launches": launches}
+    lines.append(f"lgcp_filter(mesh=) N={N_LGCP}, K={slots}: best "
+                 f"{min(secs) * 1e3:.2f} ms, {rate:.4g} "
+                 f"particle-slot-steps/s, {gap:.2f} joint se from the "
+                 "single-device route")
+
+    f_data = ct.simulate_regular(model, params, gen(0), T_MAIN,
+                                 dt=1.0).to_timeseries()
+    f_obs = int(f_data.mask.sum())
+
+    def online(seed):
+        f = ct.utils.OnlineFilter(model, params, N_MAIN, gen(seed),
+                                  t0=float(f_data.ts[0]), store="ll",
+                                  mesh=mesh)
+        for i in range(0, T_MAIN, STREAM_CHUNK):
+            j = i + STREAM_CHUNK
+            f.step(ct.TimeSeries(f_data.ts[i:j], f_data.ys[i:j],
+                                 f_data.mask[i:j]))
+        if type(f.particles).__name__ != "DTensor":
+            raise AssertionError("OnlineFilter(mesh=) carries "
+                                 f"{type(f.particles).__name__}")
+        return f
+
+    secs, lls, launches, _ = _timed_runs(
+        online, list(range(1401, 1401 + MESH_RUNS)))
+    k = MESH_RUNS * f_obs
+    _expect(launches, {"K7a": k, "K7b": k, "K4": k}, "OnlineFilter(mesh=)")
+    gap = _joint_se_check(lls, stream_lls, "OnlineFilter(mesh=) vs unchunked")
+    out["online"] = {"ms_per_step": min(secs) / T_MAIN * 1e3,
+                     "launches": launches}
+    lines.append(f"OnlineFilter(mesh=) N={N_MAIN} T={T_MAIN} in chunks of "
+                 f"{STREAM_CHUNK}: best {min(secs) / T_MAIN * 1e3:.4f} "
+                 f"ms/step, {gap:.2f} joint se from phase 35's unchunked")
+
+    cuda = ["--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "d")
+        with contextlib.redirect_stdout(io.StringIO()):
+            simulate.main(["model", "--out", d] + cuda)
+        sims = d + "_sims.json"
+        a_obs = int(tio.read_timeseries_json(sims, device=dev).mask.sum())
+        for what, main, argv, per in (
+                ("filtering --mesh", filtering.main,
+                 [sims, "--mesh", "--out", d], 1),
+                ("posterior --mesh", determine_parameters.main,
+                 ["posterior", sims, "--mesh", "--n-iters",
+                  str(MESH_APP_ITERS), "--out", d], MESH_APP_ITERS)):
+            torch.cuda.synchronize()
+            _reset_counters()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                main(argv + cuda)
+            seconds = time.perf_counter() - t0
+            k = per * a_obs
+            launches = _read_counters()
+            _expect(launches, {"K7a": k, "K7b": k, "K4": k}, f"app {what}")
+            out[f"app {what}"] = {"s": seconds, "launches": launches}
+            lines.append(f"app {what} {seconds:.2f} s")
+        rows = _csv_rows(d + "_filtered.csv")
+        _, p_lls, _ = tio.read_posterior_json(d + "_posterior_0.json",
+                                              device=dev)
+        if (rows.shape != (500, 14) or tuple(p_lls.shape) != (MESH_APP_ITERS,)
+                or not bool(torch.isfinite(p_lls).all())):
+            raise AssertionError(f"apps --mesh: rows {rows.shape}, "
+                                 f"posterior {tuple(p_lls.shape)}")
+    print(f"[41] mesh routes over NCCL: " + "; ".join(lines)
+          + f"; {device_line}", flush=True)
+    return out
+
+
 # CUDA kernels one call of each wrapper launches at its timing inputs (K6
 # batched at N = 100: one tile); the kernels of ONE_KERNEL must launch one
 KERNELS_PER_CALL = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 1,
@@ -2762,8 +3223,20 @@ def main() -> int:
     monitored = phase_pmmh_monitored(dev, device_line)
     native_io = phase_native_io(dev)
     apps = phase_clis(dev, device_line)
-    print(f"[39] phases 35-38 took {time.perf_counter() - t_new:.1f} s; the "
-          f"script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[35-38] took {time.perf_counter() - t_new:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # the mesh routes in a world of one rank over NCCL
+    t_new = time.perf_counter()
+    mesh = nccl_world_of_one()
+    mesh_flagship = phase_mesh_flagship(dev, device_line, mesh)
+    ring = phase_mesh_ring(gen, dev)
+    mesh_routes = phase_mesh_routes(dev, device_line, mesh,
+                                    lgcp["systematic"]["lls"],
+                                    streaming["unchunked"]["lls"])
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(f"[39-41] took {time.perf_counter() - t_new:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # bound_ms from this run's inputs: each input read once, each output
     # written once; operations counted per element as noted beside each
@@ -2867,7 +3340,13 @@ def main() -> int:
             ("OnlineFilter (2 runs)", streaming["chunked"]["launches"]),
             *((f"pmmh_monitored {k}", v["launches"]) for k, v in
               monitored.items()),
-            *((f"app {k}", v["launches"]) for k, v in apps.items())):
+            *((f"app {k}", v["launches"]) for k, v in apps.items()),
+            *((f"mesh {k}", v["launches"]) for k, v in mesh_flagship.items()
+              if isinstance(v, dict) and "launches" in v),
+            ("mesh ring (every shard and hop)", {
+                "K4": ring["fills"], "K7a": RING_SHARDS * len(RING_REGIMES),
+                "K7b": RING_SHARDS * len(RING_REGIMES)}),
+            *((f"mesh {k}", v["launches"]) for k, v in mesh_routes.items())):
         for key, v in counts.items():
             if v:
                 by_name[key].setdefault("launches_by_path", {})[path] = v
@@ -2882,7 +3361,22 @@ def main() -> int:
                                    v["checkpointed_iters_per_s"]}
                            for k, v in monitored.items()},
         "apps_s": {k: v["s"] for k, v in apps.items()},
-        "native_io": native_io}
+        "native_io": native_io,
+        "sharded": {
+            "sharded_particle_steps_per_sec":
+                mesh_flagship["systematic"]["rate"],
+            "sharded_fused_particle_steps_per_sec":
+                mesh_flagship["systematic-pallas-fused"]["rate"],
+            "fused_summary_ess_ms_per_step":
+                mesh_flagship["fused summary ess 0.5"]["ms_per_step"],
+            "ring": ring,
+            "sharded_pmmh_iters_per_s":
+                mesh_routes["sharded_pmmh"]["iters_per_s"],
+            "lgcp_particle_slot_steps_per_s":
+                mesh_routes["lgcp"]["particle_slot_steps_per_s"],
+            "online_ms_per_step": mesh_routes["online"]["ms_per_step"],
+            "apps_s": {k: v["s"] for k, v in mesh_routes.items()
+                       if k.startswith("app ")}}}
     print(json.dumps({"paths": paths_line}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,13 +22,16 @@ both resampling through K1 + K4 or K7a + K7b + K4.  On CPU tensors the
 kernels' plain PyTorch versions run instead.  ``utils`` reads and writes
 the JAX package's file formats (``native`` is its C++ parser tier),
 streams chunks through a persistent filter (``OnlineFilter``) and runs
-long PMMH chains with checkpoints (``pmmh_monitored``); ``examples`` are
+long PMMH chains with checkpoints (``pmmh_monitored``); ``parallel``
+shards the particle cloud and the PMMH chains over a ``torch.distributed``
+mesh (NCCL on cards, gloo on the CPU), which ``bootstrap_filter``,
+``lgcp_filter`` and ``OnlineFilter`` take as ``mesh=``; ``examples`` are
 the command-line apps.
 """
 
 __version__ = "0.1.0"
 
-from . import inference, models, native, ops, utils
+from . import inference, models, native, ops, parallel, utils
 from .inference import (FilterResult, Forecast, ForecastCloud, KalmanResult,
                         PfSummary, PmmhResult, PmmhState, adaptive_pmmh,
                         bootstrap_filter, credible_interval_eta,
@@ -49,7 +52,7 @@ from .utils import (SimulatedData, TimeSeries, simulate, simulate_lgcp,
                     simulate_regular)
 
 __all__ = [
-    "models", "inference", "native", "ops", "utils",
+    "models", "inference", "native", "ops", "parallel", "utils",
     "poisson", "linear", "seasonal", "students_t", "bernoulli", "beta",
     "negative_binomial", "zero_inflated_poisson", "lgcp", "compose",
     "brownian_motion", "gen_brownian_motion", "ou_process",

@@ -8,7 +8,11 @@ r"""Pilot run + PMMH posterior + JSON-to-CSV
   python -m composablestatespacemodels_torch.examples.determine_parameters \
       tocsv posterior.json posterior.csv
 
-Add ``--device cpu`` to run without a card.
+Add ``--device cpu`` to run without a card.  ``posterior --mesh`` runs the
+chains over a (chains x particles) mesh of every rank, each chain's filter
+sharding its cloud (``--adaptive``: the adaptive tier, else the monitored
+one with a checkpoint): under torchrun over its ranks, under plain
+``python -m`` over a world of one.  Rank 0 writes the files.
 """
 
 import argparse
@@ -44,6 +48,11 @@ def main(argv=None):
                          "kernel K8 (n_particles <= 1024, exact-transition "
                          "models) -- the fast path for --chains at MCMC "
                          "shapes")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run chains over a (chains x particles) mesh of "
+                         "every rank (parallel.sharded_pmmh: each chain's "
+                         "filter shards its cloud); combines with "
+                         "--adaptive and --chains")
     add_common_args(ap)
     args = ap.parse_args(argv)
     cfg = config_from_args(args)
@@ -55,6 +64,11 @@ def main(argv=None):
         print(f"wrote {args.csv_out or 'posterior.csv'}")
         return
 
+    if args.mesh and args.what == "posterior":
+        # before any tensor is made: on a card the rank takes its card here
+        from composablestatespacemodels_torch.parallel import (
+            initialize_distributed)
+        initialize_distributed(cfg.device)
     data = cio.read_timeseries_json(args.data, device=cfg.device)
     gen = generator(cfg)
 
@@ -77,6 +91,8 @@ def main(argv=None):
 
     # posterior: chains on a chain axis, monitored single chain via a host
     # loop of chunks
+    if args.mesh:
+        return _posterior_mesh(args, cfg, model, params, data, gen)
     pf_ll = ct.make_pf_loglik(model, data, cfg.n_particles, cfg.resample)
     if args.chains > 1:
         pf_all = (ct.make_pf_loglik_chains(model, data, cfg.n_particles)
@@ -101,6 +117,40 @@ def main(argv=None):
                              checkpoint_path=f"{cfg.out}_chain.npz")
         cio.write_posterior_json(f"{cfg.out}_posterior.json", res)
         print(f"acceptance: {float(res.acceptance_rate()):.3f}")
+    if args.plot:
+        from composablestatespacemodels_torch.utils import plots
+        plots.plot_posterior(res, path=f"{cfg.out}_posterior.png")
+        plots.plot_diagnostics(res, path=f"{cfg.out}_diagnostics.png")
+        print(f"wrote {cfg.out}_posterior.png + _diagnostics.png")
+
+
+def _posterior_mesh(args, cfg, model, params, data, gen):
+    """The posterior over a (chains x particles) mesh of every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from composablestatespacemodels_torch.parallel import (
+        make_mesh, sharded_adaptive_pmmh, sharded_pmmh_monitored)
+
+    n_ranks = dist.get_world_size()
+    n_chains = max(1, min(args.chains, n_ranks))
+    mesh = make_mesh(n_chains, n_ranks // n_chains,
+                     torch.device(cfg.device).type)
+    if args.adaptive:
+        res = sharded_adaptive_pmmh(
+            model, params, data, cfg.n_particles, gen, cfg.n_iters, mesh,
+            pilot_iters=max(200, cfg.n_iters // 4), pilot_delta=args.delta)
+    else:
+        res = sharded_pmmh_monitored(
+            gen, model, params, data, cfg.n_particles, cfg.n_iters, mesh,
+            proposal=perturb(args.delta), chunk_size=1000,
+            checkpoint_path=f"{cfg.out}_mesh_chain.npz")
+    if dist.get_rank() != 0:
+        return
+    for c in range(n_chains):
+        chain = tree_map(lambda x: x[c], res)
+        cio.write_posterior_json(f"{cfg.out}_posterior_{c}.json", chain)
+    print(f"acceptance rates: {res.acceptance_rate().tolist()}")
     if args.plot:
         from composablestatespacemodels_torch.utils import plots
         plots.plot_posterior(res, path=f"{cfg.out}_posterior.png")

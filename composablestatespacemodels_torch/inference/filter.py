@@ -517,7 +517,8 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
                      initial_state=None,
                      store="summary",
                      ess_threshold: Optional[float] = None,
-                     interval: float = 0.975) -> FilterResult:
+                     interval: float = 0.975,
+                     mesh=None, **mesh_kwargs) -> FilterResult:
     """Run the bootstrap particle filter over a time series.
 
     Args:
@@ -548,7 +549,34 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
         reference always resamples; summaries and paths then weigh the
         carried weights).  Costs one host read per observed step.
       interval: credible-interval level of the summaries.
+      mesh: a ``torch.distributed`` device mesh with a
+        :data:`~..parallel.mesh.PARTICLE_AXIS` axis: shard the particle
+        cloud over it and run the particle-sharded filter on every rank
+        (:func:`~..parallel.sharded_filter.sharded_bootstrap_filter`, which
+        takes ``mesh_kwargs``), ``generator`` seeded alike on every rank.
+        ``resample="systematic"`` and ``"systematic-pallas-fused"`` (K5 on
+        every shard) are supported on a mesh.
     """
+    if mesh is not None:
+        from ..parallel.sharded_filter import sharded_bootstrap_filter
+
+        if resample in _FUSED:
+            # the propagate in K5 on every shard; the distributed
+            # systematic resample itself is unchanged
+            mesh_kwargs = dict(mesh_kwargs, fused_propagate=True,
+                               transposed=True)
+        elif resample != "systematic":
+            raise ValueError(
+                "mesh= requires resample='systematic' (or "
+                f"'systematic-pallas-fused'; got {resample!r}); "
+                "distributed resampling shares one uniform across shards")
+        return sharded_bootstrap_filter(
+            model, params, data, n_particles, generator, mesh, t0=t0,
+            initial_state=initial_state, store=store,
+            ess_threshold=ess_threshold, interval=interval, **mesh_kwargs)
+    if mesh_kwargs:
+        raise TypeError(f"unexpected arguments {sorted(mesh_kwargs)} (only "
+                        "valid with mesh=)")
     _check_scheme(resample, store)
     if data.ts.device != generator.device:
         raise ValueError(f"data on {data.ts.device} but generator on "

@@ -22,8 +22,11 @@ The summaries follow the JAX single-device filter: eta from the
 pre-resample cloud, states from the resampled one, the order statistics of
 ``credible_interval_eta`` / ``credible_interval_state``.
 
-The particle-sharded route (``mesh=`` / ``axis=``) waits for the port of
-``parallel/``.
+With ``mesh=`` (:func:`_lgcp_sharded_impl`) the particle axis is sharded
+over a ``torch.distributed`` mesh on the same slot semantics: the weight
+scalars are all-reduced, the resample is the distributed systematic
+resampler of ``parallel/sharded_filter.py`` and the order statistics come
+from the bisection with its counts summed over the shards.
 """
 
 from __future__ import annotations
@@ -126,10 +129,77 @@ def _lgcp_impl(model: Model, params: Tree, grid, n_particles: int,
     return _result_from_scan(ll, outs, x)
 
 
+def _lgcp_sharded_impl(model: Model, params: Tree, grid, n_particles: int,
+                       generator: torch.Generator, precision: int,
+                       interval: float, mesh, axis: str) -> LgcpResult:
+    """The particle-sharded pass over the union fine grid
+    (``_lgcp_sharded_impl``, ``lgcp.py:210-296`` of the JAX package, on its
+    ``_slot_body``): per observation slot the weight scalars' max and sums
+    over the shards, the distributed systematic resample, the mean
+    intensity and state summed over the shards and the bisection's order
+    statistics at :func:`_interval_ks`'s indices.  Each shard draws its
+    initial cloud and its Euler-Maruyama noise from its own stream; the
+    resampling uniforms are shared.  ``final_particles`` is a sharded
+    ``DTensor``."""
+    from ..parallel.sharded_filter import (_as_sharded, _kth_smallest_sharded,
+                                           _resample_t, _shard_generator,
+                                           _Shards)
+
+    t_eval, t_obs = grid[0], grid[4]
+    hflag, aflag, oflag, zflag = (f.tolist() for f in grid[1:4] + grid[5:6])
+    device = generator.device
+    sh = _Shards(mesh, axis, device)
+    if n_particles % sh.n:
+        raise ValueError(
+            f"n_particles={n_particles} not divisible by {sh.n} shards")
+    local_n = n_particles // sh.n
+    params = params_to(params, device)
+    sp = model.sde_params(params)
+    h = 10.0 ** (-precision)
+    local = _shard_generator(generator, sh)
+    x = model.initial_state_t(params, local, local_n)            # [d, m]
+    uniforms = torch.rand(sum(oflag), generator=generator, device=device)
+    eta_ks, state_ks = _interval_ks(n_particles, interval)
+    ks = torch.tensor([list(eta_ks)] + [list(state_ks)] * model.dim,
+                      dtype=torch.int32, device=device)
+    g_eval = model.design_vector(torch.as_tensor(t_eval, device=device))
+    g_obs = model.design_vector(torch.as_tensor(t_obs, device=device))
+    hz = torch.zeros(local_n, dtype=torch.float32, device=device)
+    ll = torch.zeros((), dtype=torch.float32, device=device)
+    outs = []
+    for k in range(len(oflag)):
+        if hflag[k]:
+            hz = hz + torch.exp(g_eval[k] @ x) * h
+        if aflag[k]:
+            z = torch.randn(x.shape, generator=local, device=device)
+            x = model.sde.euler_maruyama(sp, x.T, h, z.T).T.contiguous()
+        if not oflag[k]:
+            continue
+        gamma = g_obs[k] @ x
+        logw = torch.zeros_like(gamma) if zflag[k] else gamma - hz   # :217
+        maxw = sh.pmax(torch.amax(logw))
+        w = torch.exp(logw - maxw)
+        total = sh.psum(torch.sum(w))
+        ll = ll + (maxw + torch.log(total / n_particles))
+        wn = w / total
+        ess = torch.floor(1.0 / sh.psum(torch.sum(wn * wn))).to(torch.int32)
+        x = _resample_t(x, w, uniforms[len(outs)], sh)
+        eta = torch.exp(gamma)
+        sel = _kth_smallest_sharded(torch.cat([eta[None], x]), ks, sh)
+        outs.append((ll, ess, sh.psum(torch.sum(eta)) / n_particles,
+                     sel[0, 0], sel[0, 1],
+                     sh.psum(torch.sum(x, dim=1)) / n_particles,
+                     sel[1:, 0], sel[1:, 1]))
+        hz = torch.zeros_like(hz)
+    return LgcpResult(ll, *(torch.stack(v) for v in zip(*outs)),
+                      _as_sharded(x.T, mesh, axis))
+
+
 def lgcp_filter(model: Model, params: Tree, data: TimeSeries,
                 n_particles: int, generator: torch.Generator, *,
                 precision: int = 1, resample="systematic",
-                interval: float = 0.975) -> LgcpResult:
+                interval: float = 0.975, mesh=None,
+                axis: str | None = None) -> LgcpResult:
     """Particle filter for a log-Gaussian Cox process over event times.
 
     ``data.ts`` are the event (or grid) times; every datum contributes
@@ -143,7 +213,25 @@ def lgcp_filter(model: Model, params: Tree, data: TimeSeries,
     is its JAX name), ``"stratified"``, ``"multinomial"`` (K7a + K7b +
     K4), ``"residual"``, ``"identity"`` or a ``(generator, weights) ->
     indices`` callable.  The filter runs on the generator's device.
+
+    ``mesh=`` shards the particle axis over ``mesh[axis]`` (default axis
+    :data:`~..parallel.mesh.PARTICLE_AXIS`) on every rank of the mesh,
+    ``generator`` seeded alike on each: systematic resampling only, as
+    ``bootstrap_filter(mesh=)``.
     """
+    if mesh is not None:
+        if resample != "systematic":
+            raise ValueError(
+                "lgcp_filter(mesh=...) supports resample='systematic' only "
+                f"(got {resample!r}); the sharded path always resamples "
+                "with the distributed systematic scheme")
+        from ..parallel.mesh import PARTICLE_AXIS
+        model.validate_params(params)
+        grid = _build_fine_grid(data.ts.cpu().numpy().astype(np.float64),
+                                precision)
+        return _lgcp_sharded_impl(model, params, grid, n_particles,
+                                  generator, precision, interval, mesh,
+                                  axis or PARTICLE_AXIS)
     if not (callable(resample) or resample in rs._SCHEMES
             or resample == "systematic-pallas"):
         raise ValueError(f"unknown resampling scheme {resample!r}; choose "

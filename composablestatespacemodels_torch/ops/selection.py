@@ -13,6 +13,12 @@ order-preserving int32 encoding ``b ^ ((b >> 31) & 0x7fffffff)`` of the
 float bits ``b`` -- the uint32 key minus 2^31 -- and the bisection runs on
 the uint32 value of the candidate held in int64: the same 32 candidates,
 the same comparisons, the same answers.
+
+Both selectors take the JAX package's ``psum`` hook: a function that sums
+each round's per-shard counts (or masses) over the shards of a
+particle-sharded cloud (``parallel/sharded_filter.py``), so the order
+statistics are those of the global rows with no gather; at ``psum=None``
+nothing changes.
 """
 
 from __future__ import annotations
@@ -42,20 +48,27 @@ def _bisect(keys: torch.Tensor, shape, below_ok) -> torch.Tensor:
     return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
 
 
-def kth_smallest_bits(vals: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+def _summed(psum):
+    return (lambda v: v) if psum is None else psum
+
+
+def kth_smallest_bits(vals: torch.Tensor, ks: torch.Tensor,
+                      psum=None) -> torch.Tensor:
     """Exact k-th smallest of each row of float32 ``vals [c, n]`` for the
     0-indexed order statistics ``ks [c, q]``: ``[c, q]`` values
-    bit-identical to ``sort(row)[k]``."""
+    bit-identical to ``sort(row)[k]``.  With ``psum`` the rows are a
+    shard's slices and ``ks`` index the global rows."""
     keys = _keys(vals, "kth_smallest_bits")
     ks = ks.to(device=vals.device, dtype=torch.int32)
+    psum = _summed(psum)
     # an int32 count: summing the bools as int64 (torch's default) costs a
     # quarter more on the card, and the counts stay below 2^31
     return _bisect(keys, ks.shape,
-                   lambda below: below.sum(-1, dtype=torch.int32) <= ks)
+                   lambda below: psum(below.sum(-1, dtype=torch.int32)) <= ks)
 
 
 def weighted_quantile_bits(vals: torch.Tensor, wn: torch.Tensor,
-                           ps: torch.Tensor) -> torch.Tensor:
+                           ps: torch.Tensor, psum=None) -> torch.Tensor:
     """Weighted quantiles of each row of float32 ``vals [c, n]``: per
     (row, target), the smallest value ``x`` of the row whose weighted CDF
     ``sum(wn * (row <= x))`` reaches ``ps[c, q] * sum(wn)``.
@@ -63,10 +76,13 @@ def weighted_quantile_bits(vals: torch.Tensor, wn: torch.Tensor,
     Each round sums the float32 weight mass strictly below the candidate
     and keeps the bit while that mass is below the target, so ``p = 1``
     lands on the largest positive-weight value (see the JAX docstring).
-    Exact up to the rounding of the float32 mass sums.
+    Exact up to the rounding of the float32 mass sums.  With ``psum`` the
+    rows and ``wn`` are a shard's slices, and the total and each round's
+    masses are summed over the shards.
     """
     keys = _keys(vals, "weighted_quantile_bits")
     w = wn.to(torch.float32)
-    th = torch.clamp(ps.to(torch.float32), max=1.0) * torch.sum(w)
-    return _bisect(keys, ps.shape, lambda below: torch.sum(
-        torch.where(below, w, 0.0), dim=-1) < th)
+    psum = _summed(psum)
+    th = torch.clamp(ps.to(torch.float32), max=1.0) * psum(torch.sum(w))
+    return _bisect(keys, ps.shape, lambda below: psum(torch.sum(
+        torch.where(below, w, 0.0), dim=-1)) < th)

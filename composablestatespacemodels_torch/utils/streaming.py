@@ -31,11 +31,6 @@ from .data import TimeSeries, to_numpy
 # inference imports utils.data, so the inference imports here are deferred
 # into the functions to keep the package's import order free of cycles
 
-_MESH_NOT_PORTED = ("OnlineFilter(mesh=...) is not ported yet: the "
-                    "particle-sharded filter comes with parallel/ (ROADMAP "
-                    "Queue 1 item 11)")
-
-
 class OnlineFilter:
     """Feed observation chunks as they arrive; the filtering state persists.
 
@@ -48,15 +43,16 @@ class OnlineFilter:
         f.ll                          # running log marginal likelihood
 
     Every chunk draws from ``generator``, so a run is reproducible from
-    its seed.
+    its seed.  ``mesh``: a ``torch.distributed`` device mesh, to filter
+    with the particle axis sharded on every rank (``generator`` seeded
+    alike on each); the carried cloud stays a sharded ``DTensor`` between
+    chunks.
     """
 
     def __init__(self, model: Model, params: Tree, n_particles: int,
                  generator: torch.Generator, t0: float, *,
                  resample="systematic", store="summary",
                  interval: float = 0.975, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_NOT_PORTED)
         model.validate_params(params)
         from ..inference.filter import bootstrap_filter  # deferred
         self._filter = bootstrap_filter
@@ -67,7 +63,9 @@ class OnlineFilter:
         self.resample = resample
         self.store = store
         self.interval = interval
-        # the first chunk's filter call draws the initial cloud
+        self.mesh = mesh
+        # the first chunk's filter call draws the initial cloud (on a mesh,
+        # each shard its own block)
         self.particles = None
         self.t = torch.tensor(float(t0), device=generator.device)
         self.ll = torch.tensor(0.0, device=generator.device)
@@ -81,7 +79,7 @@ class OnlineFilter:
             self.model, self.params, chunk, self.n_particles, self.generator,
             resample=self.resample, t0=float(self.t),
             initial_state=self.particles, store=self.store,
-            interval=self.interval)
+            interval=self.interval, mesh=self.mesh)
         self.particles = res.final_particles
         self.t = chunk.ts[-1]
         self.ll = self.ll + res.ll
@@ -89,11 +87,12 @@ class OnlineFilter:
         return res
 
 
-def _chunk_generator(base: int, chunk: int, device) -> torch.Generator:
-    """Chunk ``chunk``'s generator: seeded from ``(base, chunk)`` (the JAX
-    package's ``fold_in(key, chunk)``), so a resumed run draws what an
-    uninterrupted one drew."""
-    seed = (base ^ (chunk * 0x9E3779B97F4A7C15)) & (2 ** 64 - 1)
+def fold_generator(base: int, index: int, device) -> torch.Generator:
+    """A generator seeded from ``(base, index)``, the JAX package's
+    ``fold_in(key, index)``: chunk ``index``'s generator here, so a
+    resumed run draws what an uninterrupted one drew; a shard's or a
+    chain's stream in ``parallel/``."""
+    seed = (base ^ (index * 0x9E3779B97F4A7C15)) & (2 ** 64 - 1)
     return torch.Generator(device=device).manual_seed(seed)
 
 
@@ -154,7 +153,7 @@ def pmmh_monitored(generator: torch.Generator, init_params: Tree,
         if store_state:
             # the latent state's shape, from one evaluation on a generator
             # of its own (the chain's draws are untouched)
-            probe = pf_ll(_chunk_generator(base, -1, device), init_params)
+            probe = pf_ll(fold_generator(base, -1, device), init_params)
             if not (isinstance(probe, tuple) and len(probe) == 2):
                 raise ValueError(_NEEDS_STATE)
             latent = torch.zeros_like(probe[1])
@@ -183,7 +182,7 @@ def pmmh_monitored(generator: torch.Generator, init_params: Tree,
 
     for c in range(start_chunk, n_chunks):
         size = _size(c)
-        res, state = pmmh(_chunk_generator(base, c, device), init_params,
+        res, state = pmmh(fold_generator(base, c, device), init_params,
                           pf_ll, proposal, size, prior=prior,
                           log_transition=log_transition, approx=approx,
                           store_state=store_state, init_state=state,

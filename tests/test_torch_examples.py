@@ -158,9 +158,30 @@ def test_interpolate(tmp_path, resample):
     assert (arr[:, 2] <= arr[:, 3]).all()
 
 
-def test_no_mesh_flag_yet():
-    with pytest.raises(SystemExit):
-        determine_parameters.main(["posterior", "x.json", "--mesh", *CPU])
+def test_no_mesh_flag_yet(sims, tmp_path):
+    """``--mesh`` now exists: both apps run it under plain ``python -m``,
+    on a world of one rank (gloo on the CPU), and write what the one-device
+    routes write."""
+    import torch.distributed as dist
+    out = str(tmp_path / "m")
+    try:
+        filtering.main([sims + "_sims.json", "--n-particles", "32",
+                        "--mesh", "--out", out, *CPU])
+        determine_parameters.main(["posterior", sims + "_sims.json",
+                                   "--mesh", "--chains", "2",
+                                   "--n-particles", "16", "--n-iters", "3",
+                                   "--out", out, *CPU])
+        assert dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    arr = _rows(out + "_filtered.csv")
+    assert arr.shape == (40, 4 + 9 + 1) and (arr[:, 2] <= arr[:, 3]).all()
+    # one rank holds one chain row, whatever --chains asks
+    _, lls, _ = tio.read_posterior_json(out + "_posterior_0.json",
+                                        device="cpu")
+    assert lls.shape == (3,) and torch.isfinite(lls).all()
+    assert not Path(out + "_posterior_1.json").exists()
 
 
 def test_tocsv_of_jax_posterior_is_byte_identical(tmp_path, monkeypatch):

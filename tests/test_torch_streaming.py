@@ -103,9 +103,28 @@ def test_online_filter_one_chunk_is_bootstrap_filter(oracle_case):
 
 
 def test_online_filter_mesh_not_ported(oracle_case):
-    _, _, _, tm, tp, _, _ = oracle_case
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tst.OnlineFilter(tm, tp, 8, torch.Generator(), 0.0, mesh=object())
+    """``OnlineFilter(mesh=)`` is ported: on a world of one rank (gloo, in
+    this process) its chunks are the sharded filter's calls, the carried
+    cloud a sharded ``DTensor``."""
+    import torch.distributed as dist
+    from composablestatespacemodels_torch.parallel import (
+        initialize_distributed, particle_mesh, sharded_bootstrap_filter)
+    _, _, _, tm, tp, tdata, _ = oracle_case
+    initialize_distributed("cpu", timeout=60)
+    try:
+        mesh = particle_mesh("cpu")
+        f = tst.OnlineFilter(tm, tp, 64, torch.Generator().manual_seed(9),
+                             t0=float(tdata.ts[0]), store="ll", mesh=mesh)
+        res = f.step(tdata)
+        ref = sharded_bootstrap_filter(tm, tp, tdata, 64,
+                                       torch.Generator().manual_seed(9), mesh,
+                                       t0=float(tdata.ts[0]), store="ll")
+        assert float(f.ll) == float(ref.ll)
+        assert type(f.particles).__name__ == "DTensor"
+        assert torch.equal(res.final_particles.to_local(),
+                           ref.final_particles.to_local())
+    finally:
+        dist.destroy_process_group()
 
 
 # -- monitored PMMH: exact resume ---------------------------------------------
