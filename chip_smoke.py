@@ -71,7 +71,11 @@ ring's fill through K4 for S = 4 virtual shards of one cloud on five
 weight regimes, every (shard, hop) bit-equal to the plain fill;
 ``sharded_pmmh`` and ``sharded_pmmh_monitored`` (resumed bit for bit),
 ``lgcp_filter(mesh=)``, ``OnlineFilter(mesh=)`` and both apps with
-``--mesh``.
+``--mesh``.  Then slice 11 (phase 42): every block of
+``docs/tutorial_torch.md`` unchanged on the card, its launches read per
+section (K1, K4, K8); ``decompose`` and ``component_f`` on the flagship's
+2^20 cloud against ``model.f`` and against the CPU; the tree algebra on
+CUDA leaves.
 Every check raises on failure.  Prints one line per phase, a JSON line
 of the new paths' rates, then a JSON line of per-kernel results (with
 each kernel's bound from this run's shapes, ``ms`` the back-to-back time
@@ -3031,6 +3035,150 @@ def phase_mesh_routes(dev, device_line: str, mesh, lgcp_lls, stream_lls):
 
 # CUDA kernels one call of each wrapper launches at its timing inputs (K6
 # batched at N = 100: one tile); the kernels of ONE_KERNEL must launch one
+TUTORIAL = "docs/tutorial_torch.md"
+TUTORIAL_DEVICE_LINE = 'device = "cuda"\n'
+
+
+def phase_tutorial(device_line: str):
+    """[42a] every fenced block of docs/tutorial_torch.md, unchanged, in one
+    namespace on the card (its device line is "cuda"; its section 6 keeps
+    the NCCL group of phases 39-41 and destroys it at the end), launch
+    counters set to 0 just before and read after each section: the
+    filters and PMMH launch K1 and K4, section 4's make_pf_loglik_chains
+    K8."""
+    import re
+    from pathlib import Path
+
+    import torch
+
+    src = (Path(__file__).resolve().parent / TUTORIAL).read_text()
+    if src.count(TUTORIAL_DEVICE_LINE) != 1:
+        raise AssertionError(f"{TUTORIAL}: expected one device line "
+                             f"{TUTORIAL_DEVICE_LINE.strip()!r}")
+    sections = []       # (heading, [blocks])
+    for part in re.split(r"^## ", src, flags=re.MULTILINE)[1:]:
+        blocks = re.findall(r"```python\n(.*?)```", part, flags=re.DOTALL)
+        sections.append((part.splitlines()[0].split(".")[0], blocks))
+    n_blocks = sum(len(b) for _, b in sections)
+    if n_blocks < 6:
+        raise AssertionError(f"{TUTORIAL}: {n_blocks} python blocks")
+    ns = {"__name__": "tutorial"}
+    by_section = {}
+    torch.cuda.synchronize()
+    _reset_counters()
+    t0 = time.perf_counter()
+    before = _read_counters()
+    for heading, blocks in sections:
+        for i, block in enumerate(blocks):
+            exec(compile(block, f"{TUTORIAL} section {heading} block {i}",
+                         "exec"), ns)
+        torch.cuda.synchronize()
+        after = _read_counters()
+        by_section[heading] = {k: after[k] - before[k] for k in after
+                               if after[k] != before[k]}
+        before = after
+    secs = time.perf_counter() - t0
+    launches = _read_counters()
+    if ns["gen"].device.type != "cuda" or ns["sim"].ys.device.type != "cuda":
+        raise AssertionError("the tutorial did not run on the card")
+    for section, keys in (("3", ("K1", "K4")), ("4", ("K1", "K4", "K8"))):
+        missing = [k for k in keys if not by_section[section].get(k)]
+        if missing:
+            raise AssertionError(f"tutorial section {section} launched no "
+                                 f"{missing}: {by_section}")
+    print(f"[42a] {TUTORIAL}: {n_blocks} blocks in {len(sections)} sections "
+          f"in {secs:.2f} s; launches {launches}, by section {by_section}; "
+          f"{device_line}", flush=True)
+    return {"s": secs, "launches": launches, "by_section": by_section}
+
+
+def phase_decompose(dev, device_line: str):
+    """[42b] Model.decompose and component_f on the flagship's final cloud
+    at N = 2^20, d = 7 from bootstrap_filter(store="summary",
+    resample="systematic-pallas"): the components sum to model.f within
+    rtol 1e-5, atol 1e-5 of the largest |f| (float32: two terms against one
+    contraction), each component_f is decompose's column bit for bit, and
+    the card's result is the CPU's on the same cloud within rtol 1e-6
+    (atol 1e-6 of the largest |part|: the dot products add in another
+    order)."""
+    import torch
+
+    import composablestatespacemodels_torch as ct
+
+    model, params = flagship()
+    gen = torch.Generator(device=dev).manual_seed(42)
+    data = ct.simulate_regular(model, params, gen, T_MAIN,
+                               dt=1.0).to_timeseries()
+    res = ct.bootstrap_filter(model, params, data, N_MAIN, gen,
+                              resample="systematic-pallas", store="summary")
+    cloud, t = res.final_particles, data.ts[-1]
+    if tuple(cloud.shape) != (N_MAIN, model.dim) or cloud.device != dev:
+        raise AssertionError(f"final cloud {tuple(cloud.shape)} on "
+                             f"{cloud.device}")
+    parts = model.decompose(cloud, t)
+    f = model.f(cloud, t)
+    if (tuple(parts.shape) != (N_MAIN, len(model.components()))
+            or not bool(torch.isfinite(parts).all())):
+        raise AssertionError(f"decompose gave {tuple(parts.shape)}, finite "
+                             f"{bool(torch.isfinite(parts).all())}")
+    f_max = float(f.abs().max())
+    sum_err = float((parts.sum(-1) - f).abs().max())
+    if not torch.allclose(parts.sum(-1), f, rtol=1e-5, atol=1e-5 * f_max):
+        raise AssertionError(f"decompose sums to f within {sum_err} "
+                             f"(largest |f| {f_max})")
+    for i in range(parts.shape[-1]):
+        if not torch.equal(model.component_f(cloud, t, i), parts[..., i]):
+            raise AssertionError(f"component_f({i}) is not decompose's "
+                                 "column")
+    cpu = model.decompose(cloud.cpu(), t.cpu())
+    p_max = float(cpu.abs().max())
+    cpu_err = float((parts.cpu() - cpu).abs().max())
+    if not torch.allclose(parts.cpu(), cpu, rtol=1e-6, atol=1e-6 * p_max):
+        raise AssertionError(f"card and CPU decompose differ by {cpu_err} "
+                             f"(largest |part| {p_max})")
+    ms = _cuda_ms(lambda: model.decompose(cloud, t), 20)
+    f_ms = _cuda_ms(lambda: model.f(cloud, t), 20)
+    print(f"[42b] flagship decompose at N={N_MAIN}, d={model.dim}: "
+          f"{ms:.4f} ms (model.f {f_ms:.4f} ms; CUDA events, 20 calls); "
+          f"|sum - f| <= {sum_err:.3g} (largest |f| {f_max:.4g}), "
+          f"|card - CPU| <= {cpu_err:.3g}; ll {float(res.ll):.2f}; "
+          f"{device_line}", flush=True)
+    return {"ms": ms, "f_ms": f_ms, "sum_err": sum_err, "cpu_err": cpu_err}
+
+
+def phase_tree_cuda(dev):
+    """[42c] the tree algebra on CUDA leaves: a tree equals its clone and
+    its CPU copy, with equal hashes; params + params equals every field
+    doubled; a changed field makes another tree."""
+    import torch
+
+    from composablestatespacemodels_torch.models import params_to, tree_map
+
+    _, host = flagship()
+    params = params_to(host, dev)
+    if params.get_node(0).sde.m0.device != dev:
+        raise AssertionError("the parameter tree is not on the card")
+    clone = params.map(lambda v: tree_map(torch.clone, v))
+    cpu = params_to(params, "cpu")
+    doubled = params.map(lambda v: tree_map(lambda x: 2 * x, v))
+    moved = params.map(lambda v: tree_map(lambda x: x + 1.0, v))
+    checks = {
+        "params == clone": params == clone,
+        "hash(params) == hash(clone)": hash(params) == hash(clone),
+        "CPU copy == params": cpu == params and params == cpu,
+        "hash(CPU copy) == hash(params)": hash(cpu) == hash(params),
+        "params + params == doubled": params + params == doubled,
+        "(params + params) on the card": (
+            (params + params).get_node(1).sde.mu.device == dev),
+        "moved != params": moved != params,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"tree algebra on CUDA leaves: {failed}")
+    print(f"[42c] tree algebra on CUDA leaves: {len(checks)} checks held",
+          flush=True)
+
+
 KERNELS_PER_CALL = {"K1": 1, "K2": 1, "K4": 1, "K5": 1, "K7a": 1, "K7b": 1,
                     "K6b": 1, "K8": 1}
 ONE_KERNEL = ("K1", "K4", "K7a", "K7b", "K6b", "K8")
@@ -3233,9 +3381,19 @@ def main() -> int:
     mesh_routes = phase_mesh_routes(dev, device_line, mesh,
                                     lgcp["systematic"]["lls"],
                                     streaming["unchunked"]["lls"])
-    import torch.distributed as dist
-    dist.destroy_process_group()
     print(f"[39-41] took {time.perf_counter() - t_new:.1f} s; the script "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # slice 11: the tutorial on the card (its section 6 takes the NCCL
+    # group of phases 39-41 and destroys it), the decomposition at full
+    # width and the tree algebra on CUDA leaves
+    t_new = time.perf_counter()
+    tutorial = phase_tutorial(device_line)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("the tutorial left its process group behind")
+    decompose = phase_decompose(dev, device_line)
+    phase_tree_cuda(dev)
+    print(f"[42] took {time.perf_counter() - t_new:.1f} s; the script "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # bound_ms from this run's inputs: each input read once, each output
@@ -3346,7 +3504,8 @@ def main() -> int:
             ("mesh ring (every shard and hop)", {
                 "K4": ring["fills"], "K7a": RING_SHARDS * len(RING_REGIMES),
                 "K7b": RING_SHARDS * len(RING_REGIMES)}),
-            *((f"mesh {k}", v["launches"]) for k, v in mesh_routes.items())):
+            *((f"mesh {k}", v["launches"]) for k, v in mesh_routes.items()),
+            ("tutorial", tutorial["launches"])):
         for key, v in counts.items():
             if v:
                 by_name[key].setdefault("launches_by_path", {})[path] = v
@@ -3376,7 +3535,9 @@ def main() -> int:
                 mesh_routes["lgcp"]["particle_slot_steps_per_s"],
             "online_ms_per_step": mesh_routes["online"]["ms_per_step"],
             "apps_s": {k: v["s"] for k, v in mesh_routes.items()
-                       if k.startswith("app ")}}}
+                       if k.startswith("app ")}},
+        "tutorial_s": tutorial["s"],
+        "decompose": decompose}
     print(json.dumps({"paths": paths_line}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

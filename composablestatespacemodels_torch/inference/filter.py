@@ -578,13 +578,19 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
         raise TypeError(f"unexpected arguments {sorted(mesh_kwargs)} (only "
                         "valid with mesh=)")
     _check_scheme(resample, store)
-    if data.ts.device != generator.device:
-        raise ValueError(f"data on {data.ts.device} but generator on "
-                         f"{generator.device}")
+    _check_data_device(data, generator)
     model.validate_params(params)
     return _run(model, params, data, n_particles, generator, resample, t0,
                 initial_state, store, ess_threshold, interval,
                 data.mask.tolist())  # the mask on the host, read once
+
+
+def _check_data_device(data: TimeSeries, generator: torch.Generator) -> None:
+    """The data must lie on the generator's device; ``"cuda"`` with no
+    index names the current card, as a tensor made there reports it."""
+    want = torch.empty(0, device=generator.device).device
+    if data.ts.device != want:
+        raise ValueError(f"data on {data.ts.device} but generator on {want}")
 
 
 def _check_scheme(resample, store) -> None:

@@ -54,7 +54,8 @@ from ..ops.resample_kernel import sorted_gather_resample_t
 from ..ops.selection import kth_smallest_bits
 from ..utils.data import TimeSeries
 from . import resampling as rs
-from .filter import _COUNTS, _initial_cloud, _propagate, _resample_step, _weigh
+from .filter import (_COUNTS, _check_data_device, _initial_cloud, _propagate,
+                     _resample_step, _weigh)
 from .lgcp import _interval_ks
 
 
@@ -250,9 +251,7 @@ def interpolation_filter(model: Model, params: Tree, data: TimeSeries,
     if not (callable(resample) or resample in rs._SCHEMES):
         raise ValueError(f"unknown resampling scheme {resample!r}; choose "
                          f"from {sorted(rs._SCHEMES)}")
-    if data.ts.device != generator.device:
-        raise ValueError(f"data on {data.ts.device} but generator on "
-                         f"{generator.device}")
+    _check_data_device(data, generator)
     model.validate_params(params)
     return _interp_impl(model, params, data, n_particles, generator, t0,
                         resample, interval, store, data.mask.tolist())

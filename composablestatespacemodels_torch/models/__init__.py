@@ -18,8 +18,8 @@ from .params import (BrownianParams, GenBrownianParams, OuParams, ParamNode,
 from .sde import (Brownian, CompositeSde, GenBrownian, Ou, Sde,
                   brownian_motion, compose_sde, gen_brownian_motion,
                   ou_process)
-from .tree import (Branch, Empty, EmptyTree, Leaf, Tree, branch, leaf,
-                   tree_map)
+from .tree import (Branch, Empty, EmptyTree, Leaf, Tree, branch,
+                   construct_tree_left, leaf, tree_map)
 
 __all__ = [
     "bijectors", "observation", "params", "sde", "tree",
@@ -39,5 +39,5 @@ __all__ = [
     "Sde", "Brownian", "GenBrownian", "Ou", "CompositeSde",
     "brownian_motion", "gen_brownian_motion", "ou_process", "compose_sde",
     "Tree", "Leaf", "Branch", "Empty", "EmptyTree", "leaf", "branch",
-    "tree_map",
+    "construct_tree_left", "tree_map",
 ]

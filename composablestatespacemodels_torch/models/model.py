@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, Tuple
 
 import torch
 
@@ -72,6 +72,14 @@ class Model:
     @property
     def dim(self) -> int:
         return self.sde.dim
+
+    def slices(self) -> List[Tuple[int, int]]:
+        """(offset, dim) of each component's slice of the flat state."""
+        out, off = [], 0
+        for c in self.components():
+            out.append((off, c.sde.dim))
+            off += c.sde.dim
+        return out
 
     def __add__(self, other: "Model") -> "ComposedModel":
         """The semigroup operator ``|+|`` (left-biased)."""
@@ -150,6 +158,18 @@ class Model:
     def f_t(self, x_t, t):
         """gamma ``[N]`` from a transposed ``[d, N]`` particle block."""
         return self.design_vector(t) @ x_t
+
+    def component_f(self, x, t, position: int):
+        """Transformed state of the ``position``-th component alone.
+        Reference: SimulateData.getState, Data.scala:241-244."""
+        off, d = self.slices()[position]
+        return x[..., off:off + d] @ self.components()[position].ftype.design(
+            d, t)
+
+    def decompose(self, x, t):
+        """Each component's contribution to gamma, ``[..., n_components]``."""
+        return torch.stack([self.component_f(x, t, i)
+                            for i in range(len(self.components()))], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -222,13 +222,16 @@ class Ou(Sde):
                 param_repeat(p.mu, self.dim),
                 torch.exp(param_repeat(p.sigma, self.dim)))
 
-    def transition_coeffs(self, p, dt):
-        _, _, phi, mu, sigma = self.constrain(p)
+    def variance(self, p, dt):
+        """Transition variance sigma^2/(2 phi) (1 - exp(-2 phi dt))."""
+        _, _, phi, _, sigma = self.constrain(p)
         dtb = _dt(dt, phi)
-        a = torch.exp(-phi * dtb)
-        b = mu * (1.0 - a)
-        q = (sigma * sigma) / (2.0 * phi) * (1.0 - torch.exp(-2.0 * phi * dtb))
-        return a, b, q
+        return (sigma * sigma) / (2.0 * phi) * (1.0 - torch.exp(-2.0 * phi * dtb))
+
+    def transition_coeffs(self, p, dt):
+        _, _, phi, mu, _ = self.constrain(p)
+        a = torch.exp(-phi * _dt(dt, phi))
+        return a, mu * (1.0 - a), self.variance(p, dt)
 
     def initial_moments(self, p):
         m0, c0, _, _, _ = self.constrain(p)

@@ -547,12 +547,11 @@ def sharded_bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
     is a ``DTensor`` of the global ``[N, d]`` cloud, sharded on
     ``mesh[axis]``; every other field is the same on every rank.
     """
-    from ..inference.filter import _check_scheme, bootstrap_filter
+    from ..inference.filter import (_check_data_device, _check_scheme,
+                                    bootstrap_filter)
 
     _check_scheme("systematic", store)
-    if data.ts.device != generator.device:
-        raise ValueError(f"data on {data.ts.device} but generator on "
-                         f"{generator.device}")
+    _check_data_device(data, generator)
     model.validate_params(params)
     if resample_comm not in ("distributed", "allgather"):
         raise ValueError(

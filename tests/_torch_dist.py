@@ -122,6 +122,15 @@ def scenario_resample(inputs):
         torch.ones(1), float(inputs["interval"]), n, sh)
     for i, v in enumerate(summary):
         out[f"summary/{i}"] = v.numpy()
+    # the unweighted summary at floor(N * interval) == 0, where the JAX
+    # sharded route asks its bisection for k = -1 and k = N
+    edge = ct.linear(ct.brownian_motion(inputs["edge_x"].shape[0]))
+    save = sf._make_save_fn_sharded_t(
+        edge, "summary", float(inputs["edge_interval"]), False,
+        torch.Generator(), 1, m, sh)
+    for i, v in enumerate(save(0, 0.0, edge.design_vector(0.0),
+                               _t(inputs["edge_x"])[:, sl], None)):
+        out[f"edge/{i}"] = v.numpy()
     return out
 
 

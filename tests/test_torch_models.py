@@ -170,3 +170,59 @@ def test_composition_is_left_biased():
     tm = ct.poisson(ct.ou_process(1)) + ct.seasonal(24, 3, ct.ou_process(6))
     assert isinstance(tm.obs, tobs.Poisson)
     assert tm.dim == 7 and tm.structure() == ("L", "L")
+
+
+# -- the decomposition (Model.slices, component_f, decompose) ---------------
+
+DECOMPOSE_MODELS = {
+    # tests/test_model.py:20-31
+    "poisson_seasonal": lambda p: (p.poisson(p.ou_process(1))
+                                   + p.seasonal(24, 4, p.ou_process(8))),
+    "three": lambda p: (p.linear(p.brownian_motion(1))
+                        + p.seasonal(24, 2, p.ou_process(4))
+                        + p.seasonal(168, 3, p.ou_process(6))),
+    "flagship": lambda p: (p.poisson(p.ou_process(1))
+                           + p.seasonal(24, 3, p.ou_process(6))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DECOMPOSE_MODELS))
+def test_slices_match_jax(name):
+    jm, tm = DECOMPOSE_MODELS[name](cj), DECOMPOSE_MODELS[name](ct)
+    assert tm.slices() == jm.slices()
+    assert sum(d for _, d in tm.slices()) == tm.dim
+
+
+@pytest.mark.parametrize("t", [0.0, 7.0, 13.5])
+@pytest.mark.parametrize("name", sorted(DECOMPOSE_MODELS))
+def test_component_f_and_decompose_match_jax(name, t):
+    """Each component's transformed state and the stack of them against
+    the JAX functions on the same ``x [64, d]``; the components sum to f."""
+    jm, tm = DECOMPOSE_MODELS[name](cj), DECOMPOSE_MODELS[name](ct)
+    x = RNG.normal(0, 1, (64, tm.dim)).astype(np.float32)
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    for pos in range(len(tm.components())):
+        _close(tm.component_f(tx, t, pos), jm.component_f(jx, t, pos),
+               rtol=1e-6, atol=1e-6)
+    parts = tm.decompose(tx, t)
+    assert parts.shape == (64, len(tm.components()))
+    _close(parts, jm.decompose(jx, t), rtol=1e-6, atol=1e-6)
+    f = tm.f(tx, t)
+    _close(parts.sum(-1), f, rtol=1e-5, atol=1e-5 * float(f.abs().max()))
+    # one state vector gives one value per component, as in JAX
+    assert tm.decompose(tx[0], t).shape == (len(tm.components()),)
+
+
+@pytest.mark.parametrize("dt", [0.01, 1.0, 10.0])
+def test_ou_variance_matches_jax(dt):
+    """``Ou.variance`` against JAX, and ``transition_coeffs``'s q is it
+    bit for bit (K2, K5 and K8 take q from there)."""
+    jm, jp, tm, tp = both("flagship")
+    for side in ("left", "right"):
+        jc, tc = getattr(jm.sde, side), getattr(tm.sde, side)
+        jsp = jm.sde_params(jp)[side == "right"]
+        tsp = tm.sde_params(tp)[side == "right"]
+        got = tc.variance(tsp, dt)
+        _close(got, jc.variance(jsp, jnp.float32(dt)), rtol=1e-6)
+        np.testing.assert_array_equal(tc.transition_coeffs(tsp, dt)[2].numpy(),
+                                      got.numpy())

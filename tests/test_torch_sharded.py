@@ -90,6 +90,8 @@ def _cases(n_shards):
     inputs["mean"] = rng.normal(size=(1,)).astype(np.float32)
     kpick = jax.random.PRNGKey(77 + n_shards)
     inputs["u_pick"] = np.asarray(jax.random.uniform(kpick, (), jnp.float32))
+    inputs["edge_x"] = rng.integers(-8, 8, (D, n)).astype(np.float32)
+    inputs["edge_interval"] = np.array(0.5 / n)
     return inputs, keys, kpick
 
 
@@ -222,6 +224,36 @@ def test_weighted_pick_and_summary_bit_equal(resample_world):
         for i in range(6):
             np.testing.assert_array_equal(r[f"summary/{i}"],
                                           np.asarray(sel[2][i]), str(i))
+
+
+def test_unweighted_summary_at_edge_interval(resample_world):
+    """At ``floor(N * interval) == 0`` the JAX sharded route asks for k = -1
+    and k = N, where its bisection gives NaN; the port wraps both indices,
+    and its sharded summary is the single-device transposed route's, bit
+    for bit (small-integer states: every sum exact)."""
+    got = np.asarray(kth_smallest_bits(jnp.asarray([[3.0, 1.0, 2.0, 5.0]]),
+                                       jnp.asarray([[-1, 4, 0, 3]])))
+    assert np.isnan(got[0, :2]).all()
+    np.testing.assert_array_equal(got[0, 2:], [1.0, 5.0])
+
+    import torch
+
+    import composablestatespacemodels_torch as ct
+    from composablestatespacemodels_torch.inference.filter import \
+        _make_save_fn_t
+
+    s, inputs, ranks, _, _ = resample_world
+    x, interval, n = inputs["edge_x"], float(inputs["edge_interval"]), int(
+        inputs["n"])
+    assert np.floor(n * interval) == 0
+    model = ct.linear(ct.brownian_motion(x.shape[0]))
+    want = _make_save_fn_t(model, "summary", interval, False,
+                           torch.Generator(), 1, n)(
+        0, 0.0, model.design_vector(0.0), torch.from_numpy(x), None)
+    for r in ranks:
+        for i, w in enumerate(want):
+            assert np.isfinite(r[f"edge/{i}"]).all()
+            np.testing.assert_array_equal(r[f"edge/{i}"], w.numpy(), str(i))
 
 
 # ---------------------------------------------------------------------------
