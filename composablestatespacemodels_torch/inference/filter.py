@@ -72,6 +72,7 @@ from ..ops.resample_kernel import (propagate_weights_t, resample_propagate,
 from ..ops.scan_kernel import systematic_counts_fused
 from ..ops.selection import kth_smallest_bits, weighted_quantile_bits
 from ..utils.data import TimeSeries
+from ..utils.profiling import span
 from . import resampling as rs
 
 _FUSED = ("systematic-pallas-fused", "systematic-fused")
@@ -309,77 +310,85 @@ def _filter_impl_t(model: Model, params: Tree, data: TimeSeries,
     weight, update ll and ESS, resample with ``scheme`` (a name of
     ``resampling._SCHEMES`` or a callable), save.  ``observed`` is the
     mask as a host list; ``clamp_eta`` as in :func:`_make_save_fn_t`."""
-    device = generator.device
-    params = params_to(params, device)
-    sp = model.sde_params(params)
-    n = n_particles
-    ts, ys, mask = data.ts, data.ys, data.mask
-    n_steps = len(observed)
-    save = _make_save_fn_t(model, store, interval, ess_threshold is not None,
-                           generator, n_steps, n, clamp_eta)
+    with span("cssm.filter.setup"):
+        device = generator.device
+        params = params_to(params, device)
+        sp = model.sde_params(params)
+        n = n_particles
+        ts, ys, mask = data.ts, data.ys, data.mask
+        n_steps = len(observed)
+        save = _make_save_fn_t(model, store, interval,
+                               ess_threshold is not None, generator, n_steps,
+                               n, clamp_eta)
 
-    x = _initial_cloud(model, params, generator, n, x_init)
-    t_start = ts[:1] if t0 is None else torch.tensor(
-        [t0], dtype=torch.float32, device=device)
-    dts = ts - torch.cat([t_start, ts[:-1]])
-    # every step's inputs, in one batched pass
-    exact = fused_propagate or model.sde.exact
-    if exact:  # raises for an SDE without an exact transition
-        a, b, q = model.sde.transition_coeffs(sp, dts)           # [T, d]
-        cols = [a, b, torch.sqrt(q)]
-    design = model.design_vector(ts)                             # [T, d]
-    y_safe = torch.where(mask, ys, 0.0)
-    family_id = None
-    if fused_propagate:
-        wspec = model.obs.kernel_log_density()
-        if wspec is not None:
-            make_consts, family_id = wspec
-            cols.append(design)
-            c = make_consts(y_safe, model.obs_scale(params))
-            consts = torch.zeros((n_steps, KERNEL_CONSTS),
-                                 dtype=torch.float32, device=device)
-            consts[:, :c.shape[-1]] = c
-        seeds = _step_seeds(generator, n_steps)
-    if exact:
-        coef = torch.stack(cols, dim=-1).contiguous()            # [T, d, 3|4]
-    uniforms = (torch.rand(n_steps, generator=generator, device=device)
-                if scheme == "systematic" else [None] * n_steps)
-    scale = model.obs_scale(params)
-
-    uniform_w = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
-    wn = uniform_w
-    ll = torch.zeros((), dtype=torch.float32, device=device)
-    ess = torch.tensor(n, dtype=torch.int32, device=device)
-    saved, ll_hist, ess_hist = [], [], []
-    for i in range(n_steps):
-        logw = None
+        x = _initial_cloud(model, params, generator, n, x_init)
+        t_start = ts[:1] if t0 is None else torch.tensor(
+            [t0], dtype=torch.float32, device=device)
+        dts = ts - torch.cat([t_start, ts[:-1]])
+        # every step's inputs, in one batched pass
+        exact = fused_propagate or model.sde.exact
+        if exact:  # raises for an SDE without an exact transition
+            a, b, q = model.sde.transition_coeffs(sp, dts)       # [T, d]
+            cols = [a, b, torch.sqrt(q)]
+        design = model.design_vector(ts)                         # [T, d]
+        y_safe = torch.where(mask, ys, 0.0)
+        family_id = None
         if fused_propagate:
-            x1, logw = propagate_weights_t(
-                x, coef[i], None if family_id is None else consts[i],
-                seeds[i], family_id)
-        else:
-            x1 = _propagate(model, params, coef[i] if exact else None,
-                            dts[i], x, generator)
-        resample = False
-        if observed[i]:
-            if logw is None:
-                logw = model.obs.log_density(design[i] @ x1, y_safe[i], scale)
-            inc, wn1 = _weigh(logw, wn)
-            ll = ll + inc
-            ess = torch.floor(1.0 / torch.sum(wn1 * wn1)).to(torch.int32)
-            # the one host read per step, and only under an ESS trigger
-            resample = (ess_threshold is None
-                        or int(ess) < ess_threshold * n)
-        else:
-            wn1 = wn / torch.sum(wn)
-        if resample:
-            x, _ = _resample_step(scheme, generator, x1, wn1, uniforms[i])
-            wn = uniform_w
-        else:
-            x, wn = x1, wn1
-        saved.append(save(i, ts[i], design[i], x, wn))
-        ll_hist.append(ll)
-        ess_hist.append(ess)
+            wspec = model.obs.kernel_log_density()
+            if wspec is not None:
+                make_consts, family_id = wspec
+                cols.append(design)
+                c = make_consts(y_safe, model.obs_scale(params))
+                consts = torch.zeros((n_steps, KERNEL_CONSTS),
+                                     dtype=torch.float32, device=device)
+                consts[:, :c.shape[-1]] = c
+            seeds = _step_seeds(generator, n_steps)
+        if exact:
+            coef = torch.stack(cols, dim=-1).contiguous()        # [T, d, 3|4]
+        uniforms = (torch.rand(n_steps, generator=generator, device=device)
+                    if scheme == "systematic" else [None] * n_steps)
+        scale = model.obs_scale(params)
+
+        uniform_w = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                               device=device)
+        wn = uniform_w
+        ll = torch.zeros((), dtype=torch.float32, device=device)
+        ess = torch.tensor(n, dtype=torch.int32, device=device)
+        saved, ll_hist, ess_hist = [], [], []
+    for i in range(n_steps):
+        with span("cssm.filter.step"):
+            logw = None
+            if fused_propagate:
+                x1, logw = propagate_weights_t(
+                    x, coef[i], None if family_id is None else consts[i],
+                    seeds[i], family_id)
+            else:
+                x1 = _propagate(model, params, coef[i] if exact else None,
+                                dts[i], x, generator)
+            resample = False
+            if observed[i]:
+                if logw is None:
+                    logw = model.obs.log_density(design[i] @ x1, y_safe[i],
+                                                 scale)
+                inc, wn1 = _weigh(logw, wn)
+                ll = ll + inc
+                ess = torch.floor(1.0 / torch.sum(wn1 * wn1)).to(torch.int32)
+                # the one host read per step, and only under an ESS trigger
+                if ess_threshold is None:
+                    resample = True
+                else:
+                    with span("cssm.host_read", "ess"):
+                        resample = int(ess) < ess_threshold * n
+            else:
+                wn1 = wn / torch.sum(wn)
+            if resample:
+                x, _ = _resample_step(scheme, generator, x1, wn1, uniforms[i])
+                wn = uniform_w
+            else:
+                x, wn = x1, wn1
+            saved.append(save(i, ts[i], design[i], x, wn))
+            ll_hist.append(ll)
+            ess_hist.append(ess)
 
     summary = path = None
     if store == "summary":
@@ -398,59 +407,65 @@ def _filter_impl_t_fused(model: Model, params: Tree, data: TimeSeries,
     next observation time and weight there in one kernel (K2 + K3).  The
     last step uses ``dt = 0``, so ``final_particles`` is the filtering
     cloud at the last time."""
-    device = generator.device
-    make_consts, family_id = model.obs.kernel_log_density()
-    params = params_to(params, device)
-    sp = model.sde_params(params)
-    d, n = model.dim, n_particles
-    ts, ys, mask = data.ts, data.ys, data.mask
-    n_steps = len(observed)
+    with span("cssm.filter.setup"):
+        device = generator.device
+        make_consts, family_id = model.obs.kernel_log_density()
+        params = params_to(params, device)
+        sp = model.sde_params(params)
+        d, n = model.dim, n_particles
+        ts, ys, mask = data.ts, data.ys, data.mask
+        n_steps = len(observed)
 
-    x = _initial_cloud(model, params, generator, n, x_init)
-    t_start = ts[0] if t0 is None else torch.as_tensor(
-        t0, dtype=torch.float32, device=device)
-    # pre-propagate to the first observation time
-    x = model.step_t(params, generator, x, ts[0] - t_start)
-    logw = _weights(model, params, x, ts[0], ys[0], mask[0])
+        x = _initial_cloud(model, params, generator, n, x_init)
+        t_start = ts[0] if t0 is None else torch.as_tensor(
+            t0, dtype=torch.float32, device=device)
+        # pre-propagate to the first observation time
+        x = model.step_t(params, generator, x, ts[0] - t_start)
+        logw = _weights(model, params, x, ts[0], ys[0], mask[0])
 
-    # every step's inputs for the NEXT interval, in one batched pass
-    zero = torch.zeros(1, dtype=torch.float32, device=device)
-    dt_next = torch.cat([ts[1:] - ts[:-1], zero])
-    t_next = torch.cat([ts[1:], ts[-1:]])
-    y_next = torch.cat([ys[1:], zero])
-    m_next = torch.cat([mask[1:], torch.zeros(1, dtype=torch.bool,
-                                              device=device)])
-    a, b, q = model.sde.transition_coeffs(sp, dt_next)          # [T, d]
-    design = model.design_vector(t_next)                         # [T, d]
-    coef = torch.stack([a, b, torch.sqrt(q), design], dim=-1).contiguous()
-    c = make_consts(torch.where(m_next, y_next, 0.0), model.obs_scale(params))
-    consts = torch.zeros((n_steps, KERNEL_CONSTS), dtype=torch.float32,
-                         device=device)
-    consts[:, :c.shape[-1]] = c
-    seeds = _step_seeds(generator, n_steps)
-    uniforms = torch.rand(n_steps, generator=generator, device=device)
+        # every step's inputs for the NEXT interval, in one batched pass
+        zero = torch.zeros(1, dtype=torch.float32, device=device)
+        dt_next = torch.cat([ts[1:] - ts[:-1], zero])
+        t_next = torch.cat([ts[1:], ts[-1:]])
+        y_next = torch.cat([ys[1:], zero])
+        m_next = torch.cat([mask[1:], torch.zeros(1, dtype=torch.bool,
+                                                  device=device)])
+        a, b, q = model.sde.transition_coeffs(sp, dt_next)      # [T, d]
+        design = model.design_vector(t_next)                     # [T, d]
+        coef = torch.stack([a, b, torch.sqrt(q), design],
+                           dim=-1).contiguous()
+        c = make_consts(torch.where(m_next, y_next, 0.0),
+                        model.obs_scale(params))
+        consts = torch.zeros((n_steps, KERNEL_CONSTS), dtype=torch.float32,
+                             device=device)
+        consts[:, :c.shape[-1]] = c
+        seeds = _step_seeds(generator, n_steps)
+        uniforms = torch.rand(n_steps, generator=generator, device=device)
 
-    uniform_w = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
-    wn = uniform_w
-    ll = torch.zeros((), dtype=torch.float32, device=device)
-    ess = torch.tensor(n, dtype=torch.int32, device=device)
-    ll_hist, ess_hist = [], []
+        uniform_w = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                               device=device)
+        wn = uniform_w
+        ll = torch.zeros((), dtype=torch.float32, device=device)
+        ess = torch.tensor(n, dtype=torch.int32, device=device)
+        ll_hist, ess_hist = [], []
     for i in range(n_steps):
-        if observed[i]:
-            inc, wn1 = _weigh(logw, wn)
-            ll = ll + inc
-            ess = torch.floor(1.0 / torch.sum(wn1 * wn1)).to(torch.int32)
-            counts = systematic_counts_fused(wn1, torch.sum(wn1), uniforms[i])
-            x, logw = resample_propagate(x, counts, coef[i], consts[i],
-                                         seeds[i], family_id)
-            wn = uniform_w
-        else:
-            wn = wn / torch.sum(wn)
-            x = model.step_t(params, generator, x, dt_next[i])
-            logw = _weights(model, params, x, t_next[i], y_next[i],
-                            m_next[i])
-        ll_hist.append(ll)
-        ess_hist.append(ess)
+        with span("cssm.filter.step"):
+            if observed[i]:
+                inc, wn1 = _weigh(logw, wn)
+                ll = ll + inc
+                ess = torch.floor(1.0 / torch.sum(wn1 * wn1)).to(torch.int32)
+                counts = systematic_counts_fused(wn1, torch.sum(wn1),
+                                                 uniforms[i])
+                x, logw = resample_propagate(x, counts, coef[i], consts[i],
+                                             seeds[i], family_id)
+                wn = uniform_w
+            else:
+                wn = wn / torch.sum(wn)
+                x = model.step_t(params, generator, x, dt_next[i])
+                logw = _weights(model, params, x, t_next[i], y_next[i],
+                                m_next[i])
+            ll_hist.append(ll)
+            ess_hist.append(ess)
     return FilterResult(ll, torch.stack(ll_hist), torch.stack(ess_hist), x.T)
 
 
@@ -580,9 +595,10 @@ def bootstrap_filter(model: Model, params: Tree, data: TimeSeries,
     _check_scheme(resample, store)
     _check_data_device(data, generator)
     model.validate_params(params)
+    with span("cssm.host_read", "mask"):
+        observed = data.mask.tolist()  # the mask on the host, read once
     return _run(model, params, data, n_particles, generator, resample, t0,
-                initial_state, store, ess_threshold, interval,
-                data.mask.tolist())  # the mask on the host, read once
+                initial_state, store, ess_threshold, interval, observed)
 
 
 def _check_data_device(data: TimeSeries, generator: torch.Generator) -> None:

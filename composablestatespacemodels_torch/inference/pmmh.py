@@ -48,6 +48,7 @@ from ..models.params import (_leaves, covariance_params, perturb,
                              perturb_mvn_eigen, params_to)
 from ..models.tree import Tree, tree_map
 from ..utils.data import TimeSeries
+from ..utils.profiling import span
 from .filter import _check_scheme, _filter_ll_chains, _run
 
 _INIT_LL = -1e30
@@ -293,27 +294,29 @@ def _mh_scan(generator, init: PmmhState, pf_ll, proposal, prior,
                                  device=generator.device))
     out_p, out_ll, out_s, out_acc = [], [], [], []
     for i in range(n_iters):
-        prop = proposal(generator, params)
-        ll_prop, s_prop = eval_ll(prop)
-        if approx:
-            # doubly stochastic: refresh the current parameters' estimate
-            # too (ApproxPMMH, PMMH.scala:138-152)
-            ll_cur, s_cur = eval_ll(params)
-        else:
-            ll_cur, s_cur = ll, state
-        a = _log_ratio(ll_prop, ll_cur, prop, params, prior, log_transition)
-        accept = log_u[i] < a
-        params = _select(accept, params, prop)
-        ll = torch.where(accept, ll_prop, ll_cur)
-        if store_state:
-            if s_cur is None:   # a fresh chain: the first proposal wins
-                s_cur = torch.zeros_like(s_prop)
-            state = _select(accept, s_cur, s_prop)
-            out_s.append(state)
-        acc = acc + accept.to(torch.int32)
-        out_p.append(params)
-        out_ll.append(ll)
-        out_acc.append(acc)
+        with span("cssm.pmmh.iter", i):
+            prop = proposal(generator, params)
+            ll_prop, s_prop = eval_ll(prop)
+            if approx:
+                # doubly stochastic: refresh the current parameters'
+                # estimate too (ApproxPMMH, PMMH.scala:138-152)
+                ll_cur, s_cur = eval_ll(params)
+            else:
+                ll_cur, s_cur = ll, state
+            a = _log_ratio(ll_prop, ll_cur, prop, params, prior,
+                           log_transition)
+            accept = log_u[i] < a
+            params = _select(accept, params, prop)
+            ll = torch.where(accept, ll_prop, ll_cur)
+            if store_state:
+                if s_cur is None:   # a fresh chain: the first proposal wins
+                    s_cur = torch.zeros_like(s_prop)
+                state = _select(accept, s_cur, s_prop)
+                out_s.append(state)
+            acc = acc + accept.to(torch.int32)
+            out_p.append(params)
+            out_ll.append(ll)
+            out_acc.append(acc)
     dim = 0 if n_chains is None else 1
     stack = lambda *xs: torch.stack(xs, dim=dim)  # noqa: E731
     result = PmmhResult(tree_map(stack, *out_p), stack(*out_ll),

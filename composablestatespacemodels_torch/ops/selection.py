@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 _SIGN = 1 << 31
 
 
@@ -58,13 +60,14 @@ def kth_smallest_bits(vals: torch.Tensor, ks: torch.Tensor,
     0-indexed order statistics ``ks [c, q]``: ``[c, q]`` values
     bit-identical to ``sort(row)[k]``.  With ``psum`` the rows are a
     shard's slices and ``ks`` index the global rows."""
-    keys = _keys(vals, "kth_smallest_bits")
-    ks = ks.to(device=vals.device, dtype=torch.int32)
-    psum = _summed(psum)
-    # an int32 count: summing the bools as int64 (torch's default) costs a
-    # quarter more on the card, and the counts stay below 2^31
-    return _bisect(keys, ks.shape,
-                   lambda below: psum(below.sum(-1, dtype=torch.int32)) <= ks)
+    with span("cssm.select"):
+        keys = _keys(vals, "kth_smallest_bits")
+        ks = ks.to(device=vals.device, dtype=torch.int32)
+        psum = _summed(psum)
+        # an int32 count: summing the bools as int64 (torch's default) costs
+        # a quarter more on the card, and the counts stay below 2^31
+        return _bisect(keys, ks.shape, lambda below: psum(
+            below.sum(-1, dtype=torch.int32)) <= ks)
 
 
 def weighted_quantile_bits(vals: torch.Tensor, wn: torch.Tensor,
@@ -80,9 +83,10 @@ def weighted_quantile_bits(vals: torch.Tensor, wn: torch.Tensor,
     rows and ``wn`` are a shard's slices, and the total and each round's
     masses are summed over the shards.
     """
-    keys = _keys(vals, "weighted_quantile_bits")
-    w = wn.to(torch.float32)
-    psum = _summed(psum)
-    th = torch.clamp(ps.to(torch.float32), max=1.0) * psum(torch.sum(w))
-    return _bisect(keys, ps.shape, lambda below: psum(torch.sum(
-        torch.where(below, w, 0.0), dim=-1)) < th)
+    with span("cssm.select"):
+        keys = _keys(vals, "weighted_quantile_bits")
+        w = wn.to(torch.float32)
+        psum = _summed(psum)
+        th = torch.clamp(ps.to(torch.float32), max=1.0) * psum(torch.sum(w))
+        return _bisect(keys, ps.shape, lambda below: psum(torch.sum(
+            torch.where(below, w, 0.0), dim=-1)) < th)

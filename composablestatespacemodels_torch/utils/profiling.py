@@ -6,6 +6,9 @@ PyTorch port of ``composablestatespacemodels_tpu/utils/profiling.py``
 * :func:`trace` -- a context manager around ``torch.profiler`` that writes
   a Chrome trace file (Perfetto / ``chrome://tracing``; no TensorBoard
   needed);
+* :func:`span` -- a named stretch of the program's host work, recorded in
+  the profiler's trace beside the kernels it launched, and a shared null
+  context when no profiler is recording;
 * :func:`time_fn` -- wall-clock micro-timing with warm-up kept apart from
   the timed calls and the device synchronised before each clock read;
 * :func:`benchmark_filter` -- the reference bench matrix (full-filter
@@ -20,8 +23,14 @@ import time
 from typing import Callable, Iterable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .checkpoint import tree_leaves
+
+# the spans the port opens; see :func:`span`
+SPANS = ("cssm.online.step", "cssm.filter.setup", "cssm.filter.step",
+         "cssm.select", "cssm.host_read", "cssm.pmmh.iter")
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -39,6 +48,21 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str, args=None):
+    """A context that records ``name`` (one of :data:`SPANS`) as a
+    ``torch.profiler.record_function`` while a profiler is recording, so
+    that the span lands in the profiler's trace, on its clock, with the
+    kernels, copies and fills launched inside it; ``args`` (a step's index,
+    which host read) becomes the record's argument string.  With no
+    profiler recording it enters nothing: one read of the profiler's
+    enabled flag and a shared null context, no allocation.  Names are
+    fixed strings; a request's index goes in ``args``."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(
+        name, None if args is None else str(args))
 
 
 def _sync(value) -> None:

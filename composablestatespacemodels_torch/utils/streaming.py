@@ -27,6 +27,7 @@ from ..models.tree import Tree, tree_map
 from .checkpoint import (checkpoint_exists, restore_checkpoint,
                          save_checkpoint, tree_leaves)
 from .data import TimeSeries, to_numpy
+from .profiling import span
 
 # inference imports utils.data, so the inference imports here are deferred
 # into the functions to keep the package's import order free of cycles
@@ -75,15 +76,18 @@ class OnlineFilter:
         """Filter one chunk; returns its
         :class:`~..inference.filter.FilterResult` (summaries are per chunk;
         ``self.ll`` accumulates across chunks)."""
-        res = self._filter(
-            self.model, self.params, chunk, self.n_particles, self.generator,
-            resample=self.resample, t0=float(self.t),
-            initial_state=self.particles, store=self.store,
-            interval=self.interval, mesh=self.mesh)
-        self.particles = res.final_particles
-        self.t = chunk.ts[-1]
-        self.ll = self.ll + res.ll
-        self.n_observed += int(chunk.ts.shape[0])
+        with span("cssm.online.step", self.n_observed):
+            with span("cssm.host_read", "t"):
+                t0 = float(self.t)
+            res = self._filter(
+                self.model, self.params, chunk, self.n_particles,
+                self.generator, resample=self.resample, t0=t0,
+                initial_state=self.particles, store=self.store,
+                interval=self.interval, mesh=self.mesh)
+            self.particles = res.final_particles
+            self.t = chunk.ts[-1]
+            self.ll = self.ll + res.ll
+            self.n_observed += int(chunk.ts.shape[0])
         return res
 
 
