@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
+import _torch_threads  # noqa: F401  (caps torch's pools under xdist)
 import composablestatespacemodels_torch as ct
 import composablestatespacemodels_tpu as cj
 from composablestatespacemodels_tpu.models.params import (BrownianParams,
