@@ -15,6 +15,8 @@ from cssm_bench.run import Run, _window, choose_device
 LOGLIK = "seasonal_poisson_d7.loglik_n2p24"
 ONLINE = "seasonal_poisson_d7.online_n2p22"
 PMMH = "negbin_seasonal_d9.pmmh_k8_c256_t1000"
+# staged: BENCHMARK.json does not list it yet (cssm_bench/staged/)
+RING = "seasonal_poisson_d7_s4.ring_n2p26"
 
 # small sizes of each cell that a CPU test run holds
 SMALL = {
@@ -22,6 +24,7 @@ SMALL = {
     ONLINE: {"n_particles": 32768, "n_obs": 2000},
     PMMH: {"n_chains": 64, "n_obs": 50, "iters_per_call": 20,
            "compare_iters": 64},
+    RING: {"n_particles": 4096, "n_obs": 20, "reference_runs": 32},
 }
 
 
